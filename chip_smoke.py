@@ -9,12 +9,18 @@ Phases (any failure raises, and the script exits nonzero without a result):
             it; no card, or no port package beside this script -> exit 1.
 2. build    every CUDA source of the port, one nvcc each, started together;
             build seconds, the ptxas report (registers, spills) and each
-            kernel's SASS instruction mix (cuobjdump).
+            kernel's SASS instruction mix (cuobjdump).  Then the SM clock
+            (nvidia-smi, sampled while a spin kernel runs) and the integer
+            pipes (csrc/latency_probe.cu): the dependent-issue latency, the
+            issue cost of each instruction kind, and the kernels' round
+            chain alone.
 3. kernels  each kernel at every shape the hash plane gives it (block buckets
             4/16/64, waves of 64/1024/4096, ragged n_blocks including 0 and
-            garbage words past every row's last block) against its plain
-            PyTorch version on the card (exact) and hashlib (a sample of
-            rows); CUDA-event times beside the bound.
+            garbage words past every row's last block), at edge shapes (row
+            counts that are no multiple of 32, block buckets 1, 128 and 256,
+            one live row in 1,024) against its plain PyTorch version on the
+            card (exact) and hashlib (a sample of rows); CUDA-event times
+            beside the bound, the chain floor and the cycles per round.
 4. paths    the main path: the c3 Recording (64 replicas, 64 clients x 100
             requests, batch 100) with the device hash plane on kernel="auto",
             held to the port's host-path run of the same Spec (steps and
@@ -39,6 +45,13 @@ pipe.  The operation time is the larger of the shifts and logic at the INT32
 rate and all 1,384 at the SM's issue ceiling (128 lanes per clock); the byte
 time moves the live blocks, n_blocks and the digests at the HBM rate; the
 bound is the larger of the two.
+
+Beside the bound, two numbers of the kernels' real limit, the serial round
+chain of the wave's longest message (its live blocks x 64 rounds):
+cycles_per_round is the kernel's time at the sampled SM clock over those
+rounds, and chain_floor_ms is those rounds x 4 dependent instructions (the
+loop-carried chain a -> a' of csrc/sha256.cu) x the measured dependent-issue
+latency, at the same clock.
 """
 
 from __future__ import annotations
@@ -68,6 +81,14 @@ INTEGER_ALU = ("SHF", "SHL", "SHR", "LOP3", "IADD3", "IADD", "IMAD", "LEA", "PRM
 
 LADDER = (4, 16, 64)
 WAVES = (64, 1024, 4096)
+# (rows, L, live rows or None for 7/8 of them): row counts that are no
+# multiple of a CTA's 32 messages, the smallest and large block buckets
+# (L = 256 wraps the kernels' 4-stage ring 64 times), and one live row in
+# 1,024.
+EDGES = ((1, 4, None), (31, 4, None), (33, 4, None), (63, 4, None),
+         (33, 1, None), (33, 128, None), (64, 256, None), (1024, 16, 1))
+# Dependent instructions on a SHA-256 round's loop-carried chain a -> a'.
+CHAIN_DEPTH = 4
 SEED = 20261016
 DEVICE = "cuda"
 # The main path: bench.py's c3 shape (BASELINE config 3) with its plane
@@ -90,6 +111,22 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
+def sm_clock_hz() -> float:
+    """The SM clock nvidia-smi reports while a spin kernel keeps the card
+    busy (an idle card reports its idle clock)."""
+    import torch
+
+    torch.cuda._sleep(6_000_000_000)  # ~3 s of device cycles
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()
+    finally:
+        torch.cuda.synchronize()
+    return float(out[0]) * 1e6
+
+
 def u32(t):
     """An int32 tensor of uint32 bits -> numpy uint32 on the host."""
     return t.cpu().numpy().view("uint32")
@@ -107,10 +144,29 @@ def bound_of(n_blocks_np, L, out_elems):
     return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes")
 
 
+def chain_of(ms, n_blocks_np, L, clock):
+    """(cycles_per_round, chain_floor_ms) of one launch: the kernel's time
+    over the rounds of the wave's longest message, and the least time those
+    rounds' dependent chain takes.  ``clock`` is (SM Hz, cycles per
+    dependent instruction)."""
+    import numpy as np
+
+    hz, latency = clock
+    rounds = int(np.minimum(n_blocks_np.astype(np.int64), L).max()) * 64
+    if rounds == 0:
+        return float("nan"), 0.0
+    return ms * 1e-3 * hz / rounds, rounds * CHAIN_DEPTH * latency / hz * 1e3
+
+
 def sass_mix(so):
-    """kernel name -> {base opcode: count} of the built library's SASS, by
-    cuobjdump beside nvcc; {} where cuobjdump is missing.  The block loop is
-    not unrolled, so one block's instructions appear once per kernel."""
+    """kernel name -> ({base opcode: count}, static cycles per round) of the
+    built library's SASS, by cuobjdump beside nvcc; {} where cuobjdump is
+    missing.  The block loops are not unrolled, so one block's instructions
+    appear once per kernel.  The static cycles are the stall counts ptxas
+    encodes in each instruction's control bits (bits 105-108), summed from
+    the consumer's first load of KW (LDS) to its last and divided by the 63
+    rounds between them: the schedule's own cycles per round, before any
+    wait the hardware adds at run time."""
     import re
 
     from mirbft_tpu_torch.ops import _build
@@ -120,18 +176,30 @@ def sass_mix(so):
         return {}
     text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    mix, current = {}, None
-    for line in text.splitlines():
+    code, current = {}, None  # kernel -> [(opcode, stall)]
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             current = next((k for k in kernel_table() if k + "_kernel" in name), None)
             if current is not None:
-                mix[current] = {}
+                code[current] = []
             continue
         op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
-        if current is not None and op:
-            mix[current][op.group(1)] = mix[current].get(op.group(1), 0) + 1
-    return mix
+        following = lines[i + 1] if op and i + 1 < len(lines) else ""
+        control = re.search(r"/\* 0x([0-9a-f]{16}) \*/", following)
+        if current is not None and control:
+            code[current].append((op.group(1), (int(control.group(1), 16) >> 41) & 0xF))
+    out = {}
+    for kernel, ops in code.items():
+        mix = {}
+        for opcode, _ in ops:
+            mix[opcode] = mix.get(opcode, 0) + 1
+        loads = [i for i, (opcode, _) in enumerate(ops) if opcode == "LDS"]
+        static = (sum(stall for _, stall in ops[loads[0]:loads[-1]]) / (len(loads) - 1)
+                  if len(loads) > 1 else float("nan"))
+        out[kernel] = (mix, static)
+    return out
 
 
 def time_plain(fn, repeats=1):
@@ -164,24 +232,28 @@ def kernel_table():
     }
 
 
-def ragged_wave(rng, wave, L, layout):
-    """A packed wave of ``wave`` rows at block bucket ``L``: 7/8 real
-    messages of ragged lengths (1..L blocks), padding rows with n_blocks 0,
-    and random words in every block past a row's last one."""
+def ragged_wave(rng, wave, L, layout, count=None):
+    """A packed wave of ``wave`` rows at block bucket ``L``: ``count`` (by
+    default 7/8 of the rows) real messages of ragged lengths (1..L blocks),
+    padding rows with n_blocks 0, and random words in every block past a
+    row's last one.  A lanes-major wave pads to whole tiles."""
     import numpy as np
 
     from mirbft_tpu_torch.ops.sha256 import pack_messages
+    from mirbft_tpu_torch.ops.sha256_pallas_lanes import pack_lanes_major
 
-    count = wave - wave // 8
+    count = max(1, wave - wave // 8) if count is None else count
     lengths = rng.integers(0, 64 * L - 8, size=count)
     messages = [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes() for n in lengths]
-    packed = pack_messages(messages, block_bucket=L, batch_bucket=wave, layout=layout)
-    blocks, n_blocks = packed.blocks, packed.n_blocks
+    # The packer rounds the batch up to a power of two: cut it to ``wave``.
+    blocks, n_blocks = pack_messages(messages, block_bucket=L, batch_bucket=wave)
+    blocks, n_blocks = blocks[:wave].copy(), n_blocks[:wave].copy()
     b = np.arange(L)
     if layout == "batch":
         dead = b[None, :] >= n_blocks[:, None]
         blocks[dead] = rng.integers(0, 2**32, size=(int(dead.sum()), 16), dtype=np.uint32)
     else:
+        blocks, n_blocks = pack_lanes_major(blocks, n_blocks)
         dead = b[None, :, None, None, None] >= n_blocks[:, None, :, :, :]
         dead = np.broadcast_to(dead, blocks.shape[:1] + (L, 16) + blocks.shape[3:])
         blocks[dead] = rng.integers(0, 2**32, size=int(dead.sum()), dtype=np.uint32)
@@ -194,9 +266,9 @@ def rows_of(words, layout):
     return words
 
 
-def check_kernels():
-    """Phase 3: every kernel at every ladder shape against its plain version
-    on the card and against hashlib."""
+def check_kernels(clock):
+    """Phase 3: every kernel at every ladder and edge shape against its
+    plain version on the card and against hashlib."""
     import numpy as np
     import torch
 
@@ -204,35 +276,40 @@ def check_kernels():
     from mirbft_tpu_torch.ops.sha256 import _H0, digests_from_words, wave_to_torch
 
     rng = np.random.default_rng(SEED)
+    shapes = [(wave, L, None) for wave in WAVES for L in LADDER] + list(EDGES)
     worst = {}
     for name, (kernel, plain, layout, _) in kernel_table().items():
         worst[name] = 0
-        for wave in WAVES:
-            for L in LADDER:
-                messages, blocks, n_blocks = ragged_wave(rng, wave, L, layout)
-                bt, nt = wave_to_torch(blocks, n_blocks, DEVICE)
-                got = kernel(bt, nt)
-                want = plain(bt, nt)
-                torch.cuda.synchronize()
-                diff = (u32(got).astype(np.int64) - u32(want).astype(np.int64))
-                err = int(np.abs(diff).max())
-                worst[name] = max(worst[name], err)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} wave={wave} L={L}: kernel != plain (max err {err})")
-                rows = rows_of(u32(got), layout)
-                sample = rng.choice(len(messages), size=min(256, len(messages)), replace=False)
-                digests = digests_from_words(rows[sample])
-                for i, d in zip(sample, digests):
-                    if d != hashlib.sha256(messages[i]).digest():
-                        raise AssertionError(f"{name} wave={wave} L={L}: row {i} != hashlib")
-                if not (rows[len(messages):] == _H0).all():
-                    raise AssertionError(f"{name} wave={wave} L={L}: padding rows != H0")
-                ms = time_cuda(lambda: kernel(bt, nt)) * 1e3
-                plain_ms = time_plain(lambda: plain(bt, nt)) * 1e3
-                bound_ms, by = bound_of(n_blocks, L, got.numel())
-                log(f"kernel {name} wave={wave} L={L} rows={rows.shape[0]} "
-                    f"ms={ms:.6f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} "
-                    f"({by}) max_abs_err={err} hashlib_rows={len(sample)} ok")
+        for wave, L, count in shapes:
+            messages, blocks, n_blocks = ragged_wave(rng, wave, L, layout, count)
+            bt, nt = wave_to_torch(blocks, n_blocks, DEVICE)
+            got = kernel(bt, nt)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            want = plain(bt, nt)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - start) * 1e3
+            diff = (u32(got).astype(np.int64) - u32(want).astype(np.int64))
+            err = int(np.abs(diff).max())
+            worst[name] = max(worst[name], err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} wave={wave} L={L}: kernel != plain (max err {err})")
+            rows = rows_of(u32(got), layout)
+            sample = rng.choice(len(messages), size=min(256, len(messages)), replace=False)
+            digests = digests_from_words(rows[sample])
+            for i, d in zip(sample, digests):
+                if d != hashlib.sha256(messages[i]).digest():
+                    raise AssertionError(f"{name} wave={wave} L={L}: row {i} != hashlib")
+            if not (rows[len(messages):] == _H0).all():
+                raise AssertionError(f"{name} wave={wave} L={L}: padding rows != H0")
+            ms = time_cuda(lambda: kernel(bt, nt)) * 1e3
+            bound_ms, by = bound_of(n_blocks, L, got.numel())
+            cycles, floor_ms = chain_of(ms, n_blocks, L, clock)
+            log(f"kernel {name} wave={wave} L={L} rows={rows.shape[0]} "
+                f"live_rows={len(messages)} ms={ms:.6f} plain_ms={plain_ms:.3f} "
+                f"bound_ms={bound_ms:.6f} ({by}) chain_floor_ms={floor_ms:.6f} "
+                f"cycles_per_round={cycles:.2f} max_abs_err={err} "
+                f"hashlib_rows={len(sample)} ok")
     return worst
 
 
@@ -419,7 +496,7 @@ def drive_paths():
     return results
 
 
-def report(paths, worst):
+def report(paths, worst, clock):
     """Phase 5: time each kernel on the inputs its paths launched it on."""
     import numpy as np
 
@@ -431,7 +508,8 @@ def report(paths, worst):
         launches = sum(launches[name] for launches, _ in paths.values())
         if launches <= 0:
             raise AssertionError(f"{name} was launched on no path")
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0}
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
+               "cycles_per_round": 0.0, "chain_floor_ms": 0.0}
         n = 0
         for path, (_, waves) in paths.items():
             for (wave_layout, shape), (count, (blocks, n_blocks)) in waves.items():
@@ -448,12 +526,17 @@ def report(paths, worst):
                 bound_ms, by = bound_of(n_blocks, L, got.numel())
                 ms = time_cuda(lambda: kernel(bt, nt)) * 1e3
                 plain_ms = time_plain(lambda: plain(bt, nt)) * 1e3
+                cycles, floor_ms = chain_of(ms, n_blocks, L, clock)
                 log(f"path-wave {path} {name} shape={list(shape)} launches={count} "
-                    f"live_blocks={int(np.minimum(n_blocks, L).sum())} ms={ms:.6f} "
-                    f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} ({by})")
+                    f"live_blocks={int(np.minimum(n_blocks, L).sum())} "
+                    f"longest={int(np.minimum(n_blocks, L).max())} ms={ms:.6f} "
+                    f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} ({by}) "
+                    f"chain_floor_ms={floor_ms:.6f} cycles_per_round={cycles:.2f}")
                 tot["ms"] += count * ms
                 tot["plain_ms"] += count * plain_ms
                 tot["bound_ms"] += count * bound_ms
+                tot["cycles_per_round"] += count * cycles
+                tot["chain_floor_ms"] += count * floor_ms
                 tot["ops" if by == "operations" else "bytes"] += count
                 n += count
         kernels.append({
@@ -469,6 +552,8 @@ def report(paths, worst):
             "bound_ms": tot["bound_ms"] / n,
             "bound_by": "operations" if tot["ops"] >= tot["bytes"] else "bytes",
             "library_ms": None,
+            "chain_floor_ms": tot["chain_floor_ms"] / n,
+            "cycles_per_round": tot["cycles_per_round"] / n,
         })
     return kernels
 
@@ -502,15 +587,30 @@ def main() -> int:
     seconds = _build.build_all()
     log(f"build: {seconds} wall_s={time.perf_counter() - start:.2f}")
     log(_build.ptxas_report("sha256").strip())
-    for name, ops in sass_mix(_build.so_path("sha256")).items():
+    for name, (ops, static) in sass_mix(_build.so_path("sha256")).items():
         int_ops = {k: v for k, v in ops.items() if k in INTEGER_ALU}
         log(f"sass {name}: {sum(ops.values())} instructions, integer ALU "
-            f"{sum(int_ops.values())} {dict(sorted(int_ops.items()))}; all "
+            f"{sum(int_ops.values())} {dict(sorted(int_ops.items()))}; "
+            f"static_cycles_per_round={static:.2f}; all "
             f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
 
     from mirbft_tpu_torch.ops.crossover import hash_crossover_batch, measure_hash_probe
+    from mirbft_tpu_torch.ops import latency_probe
 
-    worst = check_kernels()
+    latency, probe_hz = latency_probe.dependent_issue_latency()
+    clock = (sm_clock_hz(), latency)
+    log(f"clock: sm_clock_mhz={clock[0] / 1e6:.0f} (nvidia-smi clocks.sm during a spin "
+        f"kernel) dependent_issue_latency_cycles={latency:.4f} (SHF/LOP3/add chain, "
+        f"csrc/latency_probe.cu) probe_clock_mhz={probe_hz / 1e6:.1f} "
+        f"(clock64 over globaltimer) | {smi}")
+    log("issue: cycles per warp instruction, one warp issuing independent "
+        "instructions (pairs in turn): " + " ".join(
+            f"{op}={latency_probe.issue_cycles(op):.3f}" for op in latency_probe.ISSUE_OPS))
+    log(f"rounds: the kernels' round chain alone (csrc/sha256_round.cuh, one warp, "
+        f"no ring): {latency_probe.round_cycles(1):.3f} cycles per round, one message "
+        f"per lane; {latency_probe.round_cycles(2):.3f} per step of two interleaved")
+
+    worst = check_kernels(clock)
     # The one-time crossover probe launches both kernels: take it before the
     # paths, whose launch counts must hold path launches only.
     probe = measure_hash_probe("cuda")
@@ -519,7 +619,7 @@ def main() -> int:
         f"crossover_batch={hash_crossover_batch('cuda')}")
 
     paths = drive_paths()
-    kernels = report(paths, worst)
+    kernels = report(paths, worst, clock)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

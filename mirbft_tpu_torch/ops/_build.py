@@ -2,8 +2,9 @@
 library, loaded with ``ctypes``.
 
 Each source under ``csrc/`` compiles for ``sm_90a`` into
-``_build/lib<name>-<key>.so``, where ``key`` hashes the source text and the
-flags, so an edited source rebuilds and an unchanged one is reused.  Builds
+``_build/lib<name>-<key>.so``, where ``key`` hashes the source text, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  Builds
 happen at first use (``library``) or all at once (``build_all``, one
 ``nvcc`` per source, started together), never at import: the CPU tests import
 every module on a machine with no CUDA toolkit.  ``ptxas -v`` output (each
@@ -42,6 +43,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_sha256_batch": ((_P, _P, _P, _I64, _I64, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
+    "latency_probe": {
+        "mirbft_chain_latency": ((_P, _I64, _I64, _P), ctypes.c_int),
+        "mirbft_chain_links_per_trip": ((), _I64),
+        "mirbft_issue_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
+        "mirbft_issue_per_trip": ((), _I64),
+        "mirbft_rounds_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
+        "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()
@@ -66,9 +75,14 @@ def nvcc_path() -> str:
 
 
 def so_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        source = fh.read()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of ``csrc/<name>.cu``, keyed on its text, every header
+    under ``csrc/`` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, path), "rb") as fh:
+            digest.update(fh.read())
+    key = digest.hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{key[:16]}.so")
 
 

@@ -12,7 +12,10 @@ for waves at or past the measured crossover (``crossover.py``) and the
 batch-major kernel (``sha256_pallas.py``) below it.
 
 ``sha256_batch_torch`` is the plain PyTorch version of the
-``[B, L, 16] -> [B, 8]`` contract.  Torch has no unsigned 32-bit arithmetic
+``[B, L, 16] -> [B, 8]`` contract, written in the kernels' two stages: a
+schedule pass over every block at once (``schedule_torch``, the producer
+warps' work) and the round chain with the kernels' folded adds and Ch/Maj
+formulas (``rounds_torch``, the consumer warp's).  Torch has no unsigned 32-bit arithmetic
 worth the name and ``>>`` on int32 is arithmetic, so the twin widens every
 word to int64 and masks with ``0xFFFFFFFF`` after each add, shift and not.
 Tensors cross as int32 bit patterns of the uint32 words (``wave_to_torch``).
@@ -70,50 +73,61 @@ def _rotr(x, n: int):
     return ((x >> n) | (x << (32 - n))) & _M32
 
 
-def _compress_torch(state, window):
-    """One compression over a vector of messages: ``state`` 8 and
-    ``window`` 16 int64 tensors of shape [N]; returns the new 8."""
-    w = list(window)
-    a, b, c, d, e, f, g, h = state
-    for t in range(64):
-        if t < 16:
-            wt = w[t]
-        else:
-            w15, w2 = w[(t - 15) & 15], w[(t - 2) & 15]
-            s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
-            s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
-            wt = (w[t & 15] + s0 + w[(t - 7) & 15] + s1) & _M32
-            w[t & 15] = wt
-        big_s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ ((~e & _M32) & g)
-        t1 = (h + big_s1 + ch + int(_K[t]) + wt) & _M32
-        big_s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        t2 = big_s0 + maj
-        h, g, f, e = g, f, e, (d + t1) & _M32
-        d, c, b, a = c, b, a, (t1 + t2) & _M32
-    new = (a, b, c, d, e, f, g, h)
-    return [(s + n) & _M32 for s, n in zip(state, new)]
+def schedule_torch(words):
+    """The kernels' producer stage for every block of every row at once:
+    ``words`` [L, 16, N] int64 (values < 2**32) -> KW [L, 64, N], the
+    expanded message schedule with the round constants added,
+    ``KW[t] = W[t] + K[t]``."""
+    import torch
+
+    w = list(words.unbind(1))
+    for t in range(16, 64):
+        w15, w2 = w[t - 15], w[t - 2]
+        s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+        s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & _M32)
+    k = torch.from_numpy(_K.astype(np.int64)).to(words.device)
+    return (torch.stack(w, 1) + k[:, None]) & _M32
+
+
+def rounds_torch(kw, n_blocks):
+    """The kernels' consumer stage: KW [L, 64, N] int64, ``n_blocks`` [N]
+    int64 -> [8, N] int64 state words.  Each block is 64 rounds with the
+    kernel's folded adds (h + KW and d summed apart from the loop-carried
+    Σ1 + Ch) and its Ch and Maj formulas; blocks at index >= n_blocks leave
+    a row's state unchanged (rows with 0 keep H0)."""
+    import torch
+
+    count = kw.shape[2]
+    state = [
+        torch.full((count,), int(h0), dtype=torch.int64, device=kw.device)
+        for h0 in _H0
+    ]
+    for blk in range(kw.shape[0]):
+        live = n_blocks > blk
+        a, b, c, d, e, f, g, h = state
+        for t in range(64):
+            hk = h + kw[blk, t]
+            hkd = hk + d
+            big_s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+            ch = g ^ (e & (f ^ g))
+            big_s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+            maj = (a & b) | (c & (a | b))
+            hks = hk + big_s0 + maj
+            h, g, f, e = g, f, e, (ch + hkd + big_s1) & _M32
+            d, c, b, a = c, b, a, (ch + hks + big_s1) & _M32
+        new = (a, b, c, d, e, f, g, h)
+        state = [torch.where(live, (s + n) & _M32, s) for s, n in zip(state, new)]
+    return torch.stack(state)
 
 
 def sha256_words_torch(words, n_blocks):
-    """Core of both twins: ``words`` [L, 16, N] int64 (values < 2**32),
-    ``n_blocks`` [N] int64 -> [8, N] int64 state words.  Blocks at index >=
-    n_blocks leave a row's state unchanged (rows with 0 keep H0)."""
-    import torch
-
-    count = words.shape[2]
-    state = [
-        torch.full((count,), int(h0), dtype=torch.int64, device=words.device)
-        for h0 in _H0
-    ]
-    for b in range(words.shape[0]):
-        live = n_blocks > b
-        if not bool(live.any()):
-            break  # every row is past its last block
-        new = _compress_torch(state, [words[b, t] for t in range(16)])
-        state = [torch.where(live, n, s) for s, n in zip(state, new)]
-    return torch.stack(state)
+    """Core of both twins, in the kernels' two stages: ``words`` [L, 16, N]
+    int64 (values < 2**32), ``n_blocks`` [N] int64 -> [8, N] int64 state
+    words.  Only the blocks up to the longest row's last one are expanded
+    and hashed."""
+    blocks = int(n_blocks.clamp(max=words.shape[0]).max()) if words.shape[2] else 0
+    return rounds_torch(schedule_torch(words[:blocks]), n_blocks)
 
 
 def widen_u32(x):

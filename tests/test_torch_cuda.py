@@ -18,14 +18,20 @@ import torch
 
 from mirbft_tpu_torch import metrics
 from mirbft_tpu_torch.ops.sha256 import (
+    _H0,
     TorchHasher,
     digests_from_words,
     pack_messages,
+    pad_message,
     sha256_batch_torch,
     wave_to_torch,
 )
 from mirbft_tpu_torch.ops.sha256_pallas import sha256_batch
-from mirbft_tpu_torch.ops.sha256_pallas_lanes import sha256_lanes, sha256_lanes_torch
+from mirbft_tpu_torch.ops.sha256_pallas_lanes import (
+    pack_lanes_major,
+    sha256_lanes,
+    sha256_lanes_torch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +71,77 @@ def test_kernel_equals_twin_and_hashlib(layout, L):
     assert digests_from_words(words[: len(messages)]) == [
         hashlib.sha256(m).digest() for m in messages
     ]
+
+
+def _twin_and_rows(layout):
+    if layout == "lanes":
+        return sha256_lanes, sha256_lanes_torch, lambda w: w.transpose(0, 2, 3, 1).reshape(-1, 8)
+    return sha256_batch, sha256_batch_torch, lambda w: w
+
+
+# (rows, L): row counts that are no multiple of a CTA's 32 messages, the
+# smallest and large block buckets; L = 256 wraps the 4-stage ring 64 times.
+EDGE_WAVES = [(1, 4), (31, 4), (33, 4), (63, 4), (33, 1), (33, 128), (64, 256)]
+
+
+@pytest.mark.parametrize("rows,L", EDGE_WAVES, ids=[f"rows{r}-L{b}" for r, b in EDGE_WAVES])
+@pytest.mark.parametrize("layout", ["batch", "lanes"])
+def test_kernel_at_edge_shapes(layout, rows, L):
+    """Ragged waves with garbage past every row's last block: the kernel
+    equals its twin bit for bit and hashlib, and padding rows keep H0."""
+    rng = np.random.default_rng(rows * 1000 + L)
+    count = max(1, rows - rows // 8)
+    messages = _messages(rows * 1000 + L, count, L)
+    blocks, n_blocks = pack_messages(messages, block_bucket=L, batch_bucket=rows)
+    blocks, n_blocks = blocks[:rows].copy(), n_blocks[:rows].copy()
+    dead = np.arange(L)[None, :] >= n_blocks[:, None]
+    blocks[dead] = rng.integers(0, 2**32, size=(int(dead.sum()), 16), dtype=np.uint32)
+    if layout == "lanes":
+        blocks, n_blocks = pack_lanes_major(blocks, n_blocks)
+    kernel, twin, rows_of = _twin_and_rows(layout)
+    bt, nt = wave_to_torch(blocks, n_blocks, "cuda")
+    got = kernel(bt, nt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, twin(bt, nt))
+    words = rows_of(got.cpu().numpy().view(np.uint32))
+    assert digests_from_words(words[:count]) == [hashlib.sha256(m).digest() for m in messages]
+    assert (words[count:] == _H0).all()
+
+
+@pytest.mark.parametrize("layout", ["batch", "lanes"])
+def test_kernel_with_one_live_row(layout):
+    """1,024 rows with garbage words, all at n_blocks == 0 but row 700: 31
+    of the 32 CTAs write H0 without touching their ring."""
+    rng = np.random.default_rng(5)
+    message = rng.integers(0, 256, size=900, dtype=np.uint8).tobytes()
+    padded = pad_message(message)
+    blocks = rng.integers(0, 2**32, size=(1024, 16, 16), dtype=np.uint32)
+    n_blocks = np.zeros(1024, dtype=np.uint32)
+    blocks[700, : len(padded)] = padded
+    n_blocks[700] = len(padded)
+    if layout == "lanes":
+        blocks, n_blocks = pack_lanes_major(blocks, n_blocks)
+    kernel, twin, rows_of = _twin_and_rows(layout)
+    bt, nt = wave_to_torch(blocks, n_blocks, "cuda")
+    got = kernel(bt, nt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, twin(bt, nt))
+    words = rows_of(got.cpu().numpy().view(np.uint32))
+    assert digests_from_words(words[700:701]) == [hashlib.sha256(message).digest()]
+    assert (np.delete(words, 700, axis=0) == _H0).all()
+
+
+def test_pipe_probes():
+    from mirbft_tpu_torch.ops import latency_probe
+
+    cycles, clock_hz = latency_probe.dependent_issue_latency(trips=1 << 12)
+    assert 1.0 <= cycles <= 32.0
+    assert 0.3e9 <= clock_hz <= 3.0e9
+    for op in latency_probe.ISSUE_OPS:
+        assert 0.5 <= latency_probe.issue_cycles(op, trips=1 << 8) <= 32.0
+    one = latency_probe.round_cycles(1, blocks=16)
+    assert 8.0 <= one <= 200.0
+    assert latency_probe.round_cycles(2, blocks=16) > one
 
 
 def test_crossover_probe_on_the_card():

@@ -146,6 +146,70 @@ def test_ragged_lanes_wave_matches_jax_and_hashlib():
     np.testing.assert_array_equal(flat, jax_words)
 
 
+def _garbage_past_last_block(blocks, n_blocks, rng):
+    """Random words in every batch-major block at or past a row's count."""
+    dead = np.arange(blocks.shape[1])[None, :] >= n_blocks[:, None]
+    blocks[dead] = rng.integers(0, 2**32, size=(int(dead.sum()), 16), dtype=np.uint32)
+
+
+# (rows, L): row counts that are no multiple of the kernels' 32 messages per
+# CTA, and the smallest and a large block bucket.
+EDGE_WAVES = [(1, 4), (31, 4), (33, 4), (63, 4), (33, 1), (33, 128)]
+
+
+@pytest.mark.parametrize("rows,L", EDGE_WAVES, ids=[f"rows{r}-L{b}" for r, b in EDGE_WAVES])
+def test_twins_at_edge_shapes_match_jax_and_hashlib(rows, L):
+    """A ragged wave of ``rows`` rows (7/8 real messages of 1..L blocks,
+    then padding rows) with garbage past every row's last block: both twins
+    equal the JAX scan program and hashlib, and padding rows keep H0."""
+    rng = np.random.default_rng(rows * 1000 + L)
+    count = max(1, rows - rows // 8)
+    messages = [
+        rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+        for n in rng.integers(0, 64 * L - 8, size=count)
+    ]
+    blocks, n_blocks = pack_messages(messages, block_bucket=L, batch_bucket=rows)
+    # The packer rounds the batch up to a power of two; cut the padding rows
+    # back to ``rows``.
+    blocks, n_blocks = blocks[:rows].copy(), n_blocks[:rows].copy()
+    assert blocks.shape == (rows, L, 16)
+    _garbage_past_last_block(blocks, n_blocks, rng)
+    jax_words = np.asarray(sha256_batch_kernel(blocks, n_blocks))
+    batch_words = _words(sha256_batch_torch(*wave_to_torch(blocks, n_blocks, "cpu")))
+    np.testing.assert_array_equal(batch_words, jax_words)
+    assert digests_from_words(batch_words[:count]) == [
+        hashlib.sha256(m).digest() for m in messages
+    ]
+    np.testing.assert_array_equal(batch_words[count:], np.broadcast_to(port._H0, (rows - count, 8)))
+    lanes_words = _words(
+        sha256_lanes_torch(*wave_to_torch(*pack_lanes_major(blocks, n_blocks), "cpu"))
+    )
+    flat = lanes_words.transpose(0, 2, 3, 1).reshape(-1, 8)
+    np.testing.assert_array_equal(flat[:rows], jax_words)
+    np.testing.assert_array_equal(flat[rows:], np.broadcast_to(port._H0, (TILE - rows, 8)))
+
+
+def test_lanes_tile_with_one_live_row():
+    """A lanes tile whose rows all have n_blocks == 0 but one, in the middle
+    of the tile, with garbage words everywhere else."""
+    rng = np.random.default_rng(5)
+    message = rng.integers(0, 256, size=900, dtype=np.uint8).tobytes()
+    padded = pad_message(message)
+    blocks = rng.integers(0, 2**32, size=(TILE, 16, 16), dtype=np.uint32)
+    n_blocks = np.zeros(TILE, dtype=np.uint32)
+    blocks[700, : len(padded)] = padded
+    n_blocks[700] = len(padded)
+    jax_words = np.asarray(sha256_batch_kernel(blocks, n_blocks))
+    lanes_words = _words(
+        sha256_lanes_torch(*wave_to_torch(*pack_lanes_major(blocks, n_blocks), "cpu"))
+    )
+    flat = lanes_words.transpose(0, 2, 3, 1).reshape(TILE, 8)
+    np.testing.assert_array_equal(flat, jax_words)
+    assert digests_from_words(flat[700:701]) == [hashlib.sha256(message).digest()]
+    others = np.delete(flat, 700, axis=0)
+    np.testing.assert_array_equal(others, np.broadcast_to(port._H0, (TILE - 1, 8)))
+
+
 @pytest.mark.parametrize(
     "layout,seed,kw",
     [
