@@ -8,12 +8,12 @@ Phases (any failure raises, and the script exits nonzero without a result):
 1. device   the card's name and power limit (nvidia-smi) and torch's view of
             it; no card, or no port package beside this script -> exit 1.
 2. build    every CUDA source of the port, one nvcc each, started together;
-            build seconds, the ptxas report (registers, spills) and each
-            kernel's SASS instruction mix (cuobjdump).  Then the SM clock
-            (nvidia-smi, sampled while a spin kernel runs) and the integer
-            pipes (csrc/latency_probe.cu): the dependent-issue latency, the
-            issue cost of each instruction kind, and the kernels' round
-            chain alone.
+            build seconds, the ptxas report (registers, spills, the local
+            stack) and each kernel's SASS instruction mix (cuobjdump).  Then
+            the SM clock (nvidia-smi, sampled while a spin kernel runs) and
+            the integer pipes (csrc/latency_probe.cu): the dependent-issue
+            latency, the issue cost of each instruction kind, and the
+            kernels' round chain alone.
 3. kernels  each kernel at every shape the hash plane gives it (block buckets
             4/16/64, waves of 64/1024/4096, ragged n_blocks including 0 and
             garbage words past every row's last block), at edge shapes (row
@@ -21,6 +21,13 @@ Phases (any failure raises, and the script exits nonzero without a result):
             one live row in 1,024) against its plain PyTorch version on the
             card (exact) and hashlib (a sample of rows); CUDA-event times
             beside the bound, the chain floor and the cycles per round.
+            Then the Ed25519 verify kernel at batches 1, 31, 33, 256, 1,024
+            and 4,096 drawn from RFC 8032 TEST 1-3, signatures by sign_one,
+            tampered R, S, message and key, small-order keys, a non-canonical
+            R and all-zero padding rows: bit for bit against verify_torch on
+            the card and against verify_one on up to 64 sampled rows a batch;
+            S >= L unscreened (kernel and twin agree, and accept it, which is
+            why the host screens it) and through the verifier (rejected).
 4. paths    the main path: the c3 Recording (64 replicas, 64 clients x 100
             requests, batch 100) with the device hash plane on kernel="auto",
             held to the port's host-path run of the same Spec (steps and
@@ -29,14 +36,29 @@ Phases (any failure raises, and the script exits nonzero without a result):
             so neither side always runs second, and one more device run is
             traced with torch.profiler for the card's busy time.  Then two
             4-node Recordings pinned to kernel="lanes" and kernel="scan", each
-            held to its host-path run.  Every kernel's launch count is set to
-            0 just before each device run and read just after; each run must
-            launch the kernels it resolves to.
+            held to its host-path run.  The signed paths: c2_signed, bench.py's
+            c2py_16n_signed shape (16 replicas, 16 clients x 50 Ed25519-signed
+            requests, batch 100, auth_wave 1,024), host, device, device, host,
+            all 800 requests committed on every node; and 4n_signed_corrupt
+            (4 replicas, 4 x 20 signed requests, client 3 a corrupt signer),
+            whose 60 honest requests commit on every node and client 3's on
+            none, with at least one corrupt row rejected by the kernel itself.
+            Every kernel's launch count is set to 0 just before each device
+            run and read just after; each run must launch exactly the kernels
+            its waves resolve to.
 5. report   the kernels' times at the shapes those runs launched, one JSON
             line {"kernels": [...]}, the nvidia-smi line, and last the JSON
             device line.
 
-Bounds: the operations of one live 64-byte block are counted as sm_90
+Ed25519 bound: one verification is 4,375 field multiplies (12 to set up
+the table, 256 x (8 + 8) in the ladder, 265 in the inversion, 2 for the
+affine x and y) of 64 + 8 products of 32 x 32 -> 64 bits, two IMAD halves
+each, at the IMAD rate (64 lanes per SM per clock: the issue probe of
+csrc/latency_probe.cu reads ~2.1 cycles per warp IMAD) and
+the sampled SM clock; the byte time moves each row's 2,432 input bytes and
+its verdict at the HBM rate.  Every row of a launch runs the full ladder.
+
+SHA-256 bounds: the operations of one live 64-byte block are counted as sm_90
 instructions at their fan-in (a rotate is one SHF, any two- or three-input
 logic one LOP3, up to three addends one IADD3), as in csrc/sha256.cu: 1,024
 shifts and logic ops, which only the INT32 pipe runs (64 lanes per SM per
@@ -95,8 +117,31 @@ DEVICE = "cuda"
 # settings; and the 4-node shape of the pinned-kernel paths.
 C3 = dict(node_count=64, client_count=64, reqs_per_client=100, batch_size=100)
 C3_PLANE = dict(device=True, hash_wave=64, hash_floor=8, defer_unready=False)
+# Run orders (drive_paths): H host path, D device run, P device run traced.
+C3_ORDER = "HDDHP"
+C2_ORDER = "HDDHP"
 SMALL = dict(node_count=4, client_count=4, reqs_per_client=20, batch_size=5)
 SMALL_PLANE = dict(device=True, hash_wave=4, hash_floor=1, defer_unready=False)
+# The signed paths: bench.py's c2py_16n_signed shape (BASELINE config 2) with
+# the auth settings of _device_crypto(); and the 4-node shape signed, with
+# waves of 16 so that verdicts come out of the kernel, and client 3 a corrupt
+# signer (its request 10's garbage S is below L, so that row passes the host
+# screen and reaches the kernel).
+C2 = dict(node_count=16, client_count=16, reqs_per_client=50, batch_size=100,
+          signed_requests=True)
+C2_PLANE = dict(device=True, hash_wave=64, hash_floor=8, auth_wave=1024,
+                auth_floor=16, defer_unready=False)
+SMALL_SIGNED = dict(SMALL, signed_requests=True)
+SMALL_SIGNED_PLANE = dict(SMALL_PLANE, auth_wave=16, auth_floor=1)
+CORRUPT_CLIENT = 3
+VERIFY_BATCHES = (1, 31, 33, 256, 1024, 4096)
+VERIFY_SAMPLE = 64  # verify_one rows a batch (~9 ms each in pure Python)
+SIGNED_KEYS = 96  # signatures by sign_one under distinct keys
+# One verification: 4,375 field multiplies of 72 products, two IMAD halves
+# each; per row 3 x 32 limbs and 2 x 256 bits of int32 in, one byte out.
+IMAD_PER_VERIFY = 4375 * 72 * 2
+IMAD_LANES_PER_SM = 64
+VERIFY_BYTES_PER_ROW = 3 * 32 * 4 + 2 * 256 * 4 + 1
 
 
 def log(*args):
@@ -158,10 +203,10 @@ def chain_of(ms, n_blocks_np, L, clock):
     return ms * 1e-3 * hz / rounds, rounds * CHAIN_DEPTH * latency / hz * 1e3
 
 
-def sass_mix(so):
-    """kernel name -> ({base opcode: count}, static cycles per round) of the
-    built library's SASS, by cuobjdump beside nvcc; {} where cuobjdump is
-    missing.  The block loops are not unrolled, so one block's instructions
+def sass_mix(so, names):
+    """kernel name (of ``names``) -> ({base opcode: count}, static cycles per
+    round) of the built library's SASS, by cuobjdump beside nvcc; {} where
+    cuobjdump is missing.  The block loops are not unrolled, so one block's instructions
     appear once per kernel.  The static cycles are the stall counts ptxas
     encodes in each instruction's control bits (bits 105-108), summed from
     the consumer's first load of KW (LDS) to its last and divided by the 63
@@ -181,7 +226,7 @@ def sass_mix(so):
     for i, line in enumerate(lines):
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            current = next((k for k in kernel_table() if k + "_kernel" in name), None)
+            current = next((k for k in names if k + "_kernel" in name), None)
             if current is not None:
                 code[current] = []
             continue
@@ -313,6 +358,158 @@ def check_kernels(clock):
     return worst
 
 
+# RFC 8032 section 7.1 TEST 1-3 (public key, message, signature).
+RFC_VECTORS = (
+    ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
+     "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e06522490155"
+     "5fb8821590a33bacc61e39701cf9b46bd25bf5f0595bbe24655141438e7a100b"),
+    ("3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c", "72",
+     "92a009a9f0d4cab8720e820b5f642540a2b27b5416503f8fb3762223ebdb69da"
+     "085ac1e43e15996e458f3613d0f11d8c387b2eaeb4302aeeb00d291612bb0c00"),
+    ("fc51cd8e6218a1a38da47ed00230f0580816ed13ba3303ac5deb911548908025", "af82",
+     "6291d657deec24024827e69c3abe01a30ce548a284743a445e3680d7db5ac3ac"
+     "18ff9b538d16f290ae67f760984dc6594a7c15e9716ed28dc027beceea1ec40a"),
+)
+
+
+def signed_pool(rng):
+    """(pubs, msgs, sigs, kinds) of the verify kernel's checks: the RFC
+    vectors first, then SIGNED_KEYS signatures by sign_one under distinct
+    keys, tampered copies of some (R, S below L, message, key), small-order
+    keys (the identity and the points of order 2 and 4, with R = [r]B and
+    S = r: the identity's rows verify, the others as h's parity says), the
+    identity's Q encoded canonically and non-canonically (y = p + 1), and
+    S >= L rows, which the host screen rejects."""
+    from mirbft_tpu_torch.ops import ed25519 as e
+
+    pubs, msgs, sigs, kinds = [], [], [], []
+
+    def add(kind, pub, msg, sig):
+        pubs.append(pub)
+        msgs.append(msg)
+        sigs.append(sig)
+        kinds.append(kind)
+
+    for pub, msg, sig in RFC_VECTORS:
+        add("rfc", bytes.fromhex(pub), bytes.fromhex(msg), bytes.fromhex(sig))
+    for _ in range(SIGNED_KEYS):
+        seed = rng.integers(0, 256, size=32, dtype="uint8").tobytes()
+        msg = rng.integers(0, 256, size=int(rng.integers(0, 200)), dtype="uint8").tobytes()
+        add("signed", e.public_from_seed(seed), msg, e.sign_one(seed, msg))
+
+    def flip(data, i):
+        return data[:i] + bytes([data[i] ^ 1 << (i % 8)]) + data[i + 1:]
+
+    for j in range(3, 3 + SIGNED_KEYS, 4):
+        pub, msg, sig = pubs[j], msgs[j], sigs[j]
+        add("tampered_r", pub, msg, flip(sig, 7))
+        add("tampered_s", pub, msg, flip(sig, 33))
+        add("tampered_msg", pub, msg + b"!", sig)
+        add("tampered_key", flip(pub, 11), msg, sig)
+    for y in (1, e.P - 1, 0):  # the identity, order 2, order 4
+        for r in (5, 77, 1234, 99991):
+            point = e._compress_py(e._pt_mul_py(r, e._BASE_PT))
+            add("small_order_key", y.to_bytes(32, "little"), b"so-%d" % r,
+                point + r.to_bytes(32, "little"))
+    add("canonical_r", (1).to_bytes(32, "little"), b"q", (1).to_bytes(32, "little") + bytes(32))
+    add("non_canonical_r", (1).to_bytes(32, "little"), b"q",
+        (e.P + 1).to_bytes(32, "little") + bytes(32))
+    for j in range(3, 11):
+        s = int.from_bytes(sigs[j][32:], "little")
+        add("s_at_least_l", pubs[j], msgs[j], sigs[j][:32] + (s + e.L).to_bytes(32, "little"))
+    return pubs, msgs, sigs, kinds
+
+
+def verify_bound(rows, hz):
+    """(bound_ms, bound_by) of one verify launch of ``rows`` rows."""
+    ops_s = rows * IMAD_PER_VERIFY / (132 * IMAD_LANES_PER_SM * hz)
+    bytes_s = rows * VERIFY_BYTES_PER_ROW / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def check_ed25519(clock):
+    """Phase 3, Ed25519: the verify kernel at every listed batch against
+    verify_torch on the card (exact) and verify_one (sampled rows)."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+
+    rng = np.random.default_rng(SEED + 1)
+    start = time.perf_counter()
+    pubs, msgs, sigs, kinds = signed_pool(rng)
+    sign_s = time.perf_counter() - start
+    expected = [e.verify_one(*row) for row in zip(pubs, msgs, sigs)]
+    verify_s = time.perf_counter() - start - sign_s
+    pad = 16  # all-zero padding rows after the pool
+    verifier = e.Ed25519BatchVerifier(min_device_batch=1, device=DEVICE)
+    arrays = verifier.pack_inputs(pubs, msgs, sigs, batch=len(pubs) + pad)
+    valid = arrays[5]
+    expected = np.array(expected + [False] * pad)
+    kind_of = kinds + ["padding"] * pad
+    counts = {k: kind_of.count(k) for k in sorted(set(kind_of))}
+    log(f"ed25519 pool: {len(pubs)} rows + {pad} padding ({counts}), "
+        f"{sum(expected)} valid by verify_one; public_from_seed and sign_one {sign_s:.3f} s, "
+        f"verify_one {len(pubs)} rows {verify_s:.3f} s")
+    for kind in ("rfc", "small_order_key", "canonical_r", "non_canonical_r", "s_at_least_l"):
+        rows = [i for i, k in enumerate(kind_of) if k == kind]
+        log(f"ed25519 pool {kind}: verify_one {expected[rows].astype(int).tolist()}")
+    kernel = e.ed25519_verify_kernel
+    worst = 0
+    for batch in VERIFY_BATCHES:
+        # The RFC vectors lead, then the padding rows, then random rows.
+        pick = rng.integers(0, len(kind_of), size=batch)
+        lead = np.concatenate([np.arange(3), len(pubs) + np.arange(pad)])[:batch]
+        pick[: len(lead)] = lead
+        inputs = [torch.from_numpy(np.ascontiguousarray(a[pick])).to(DEVICE) for a in arrays[:5]]
+        got = kernel(*inputs)
+        torch_sync()
+        start = time.perf_counter()
+        want = e.verify_torch(*inputs)
+        torch_sync()
+        plain_ms = (time.perf_counter() - start) * 1e3
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ed25519 batch={batch}: kernel != verify_torch")
+        verdicts = got.cpu().numpy() & valid[pick]
+        if not verdicts[: min(batch, 3)].all():
+            raise AssertionError(f"ed25519 batch={batch}: an RFC 8032 vector failed")
+        sample = rng.choice(batch, size=min(VERIFY_SAMPLE, batch), replace=False)
+        for i in sample:
+            if verdicts[i] != expected[pick[i]]:
+                raise AssertionError(f"ed25519 batch={batch}: row {i} != verify_one")
+        ms = time_cuda(lambda: kernel(*inputs), repeats=5) * 1e3
+        bound_ms, by = verify_bound(batch, clock[0])
+        log(f"kernel ed25519_verify batch={batch} verified={int(verdicts.sum())} "
+            f"padding={int((pick >= len(pubs)).sum())} ms={ms:.6f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f} "
+            f"max_abs_err={err} verify_one_rows={len(sample)} ok")
+    # S >= L unscreened: the packed rows of valid signatures with S + L in
+    # place of S.  [S + L]B = [S]B, so kernel and twin accept what the host
+    # screen must reject.
+    rows = [i for i, k in enumerate(kinds) if k == "s_at_least_l"]
+    originals = list(range(3, 3 + len(rows)))  # the signatures they malleate
+    inputs = [np.ascontiguousarray(a[originals]) for a in arrays[:5]]
+    for n, i in enumerate(rows):
+        s = int.from_bytes(sigs[i][32:], "little")
+        inputs[3][n] = np.unpackbits(np.frombuffer(s.to_bytes(32, "little"), dtype="uint8"),
+                                     bitorder="little")
+    inputs = [torch.from_numpy(a).to(DEVICE) for a in inputs]
+    got = kernel(*inputs)
+    want = e.verify_torch(*inputs)
+    if not torch.equal(got, want) or not bool(got.all()):
+        raise AssertionError("ed25519: unscreened S >= L rows: kernel != twin, or not accepted")
+    screened = verifier.verify_batch([pubs[i] for i in rows], [msgs[i] for i in rows],
+                                     [sigs[i] for i in rows])
+    if screened.any():
+        raise AssertionError("ed25519: an S >= L row got through the verifier")
+    log(f"ed25519 S >= L: {len(rows)} rows unscreened, kernel == twin, all accepted "
+        f"(S + L gives the same [S]B); through the verifier all rejected == verify_one")
+    return worst
+
+
 class WaveLog:
     """Observes the hash plane's waves (shape, count, the latest inputs of
     each shape) by wrapping ``TorchHasher.dispatch_packed``; launches are
@@ -341,13 +538,99 @@ class WaveLog:
         self.cls.dispatch_packed = self.real
 
 
+class VerifyLog:
+    """Observes the auth plane's verify waves by wrapping the verifier:
+    each dispatch's rows and real rows, the packed inputs of each wave shape
+    (the latest), and each collect's validity mask and kernel verdicts.
+    Launches are counted only by the kernel wrapper."""
+
+    def __init__(self):
+        from mirbft_tpu_torch.ops.ed25519 import Ed25519BatchVerifier
+
+        self.cls = Ed25519BatchVerifier
+        self.real = (self.cls.dispatch, self.cls.pack_inputs, self.cls.collect)
+        self.waves = []  # (rows, real rows) per dispatch
+        self.inputs = {}  # rows -> (dispatches, packed arrays)
+        self.verdicts = []  # (valid, kernel verdict) per collect, real rows only
+        self.real_rows = {}  # id(in-flight handle) -> its real rows
+
+    def __enter__(self):
+        dispatch, pack_inputs, collect = self.real
+        log_ = self
+
+        def wrapped_dispatch(verifier, pubs, msgs, sigs, n_real=None):
+            real = len(pubs) if n_real is None else n_real
+            log_.waves.append((len(pubs), real))
+            handle = dispatch(verifier, pubs, msgs, sigs, n_real)
+            log_.real_rows[id(handle)] = real
+            return handle
+
+        def wrapped_pack(verifier, pubs, msgs, sigs, batch=None):
+            packed = pack_inputs(verifier, pubs, msgs, sigs, batch)
+            rows = packed[0].shape[0]
+            count, _ = log_.inputs.get(rows, (0, None))
+            log_.inputs[rows] = (count + 1, tuple(a.copy() for a in packed))
+            return packed
+
+        def wrapped_collect(verifier, handle):
+            out = collect(verifier, handle)
+            real = log_.real_rows.pop(id(handle), handle.count)
+            log_.verdicts.append((handle.valid[:real].copy(), handle.ok.cpu().numpy()[:real]))
+            return out
+
+        self.cls.dispatch = wrapped_dispatch
+        self.cls.pack_inputs = wrapped_pack
+        self.cls.collect = wrapped_collect
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.dispatch, self.cls.pack_inputs, self.cls.collect = self.real
+
+
+class SignClock:
+    """Host seconds the simulated clients spend sealing requests (signing,
+    in pure Python where the cryptography package is absent)."""
+
+    def __init__(self):
+        from mirbft_tpu_torch.testengine.recorder import SimClient
+
+        self.cls = SimClient
+        self.real = SimClient.request_by_req_no
+        self.seconds = 0.0
+
+    def __enter__(self):
+        real, clock = self.real, self
+
+        def request_by_req_no(client, req_no):
+            start = time.perf_counter()
+            try:
+                return real(client, req_no)
+            finally:
+                clock.seconds += time.perf_counter() - start
+
+        self.cls.request_by_req_no = request_by_req_no
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.request_by_req_no = self.real
+
+
+def counted_kernels():
+    """name -> wrapper of every kernel whose launches the paths count."""
+    from mirbft_tpu_torch.ops import ed25519
+
+    kernels = {name: entry[0] for name, entry in kernel_table().items()}
+    kernels["ed25519_verify"] = ed25519.ed25519_verify_kernel
+    return kernels
+
+
 def reset_launches():
-    for kernel, *_ in kernel_table().values():
+    for kernel in counted_kernels().values():
         kernel.launches = 0
 
 
 def read_launches():
-    return {name: entry[0].launches for name, entry in kernel_table().items()}
+    return {name: kernel.launches for name, kernel in counted_kernels().items()}
 
 
 def run_spec(spec, profile=None):
@@ -381,16 +664,17 @@ def run_spec(spec, profile=None):
 
 
 def device_busy(trace_path):
-    """(busy seconds, {name: count}) of the device events of a Chrome trace:
-    kernels, copies and fills."""
+    """(busy seconds, {name: count}, kernel records) of the device events of
+    a Chrome trace: kernels, copies and fills."""
     with open(trace_path) as fh:
         events = json.load(fh).get("traceEvents", [])
-    busy, names = 0.0, {}
+    busy, names, kernels = 0.0, {}, 0
     for ev in events:
         if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             busy += float(ev.get("dur", 0.0)) * 1e-6
             names[ev.get("name", "?")] = names.get(ev.get("name", "?"), 0) + 1
-    return busy, names
+            kernels += ev.get("cat") == "kernel"
+    return busy, names, kernels
 
 
 def torch_sync():
@@ -399,74 +683,105 @@ def torch_sync():
     torch.cuda.synchronize()
 
 
+def corrupt_signer(recorder):
+    recorder.client_configs[CORRUPT_CLIENT].corrupt = True
+
+
 def drive_paths():
-    """Phase 4: the main path (c3, kernel auto) and the two pinned-kernel
-    4-node paths; returns per-path launches and the observed waves.
+    """Phase 4: the main path (c3, kernel auto), the signed c2 path, the two
+    pinned-kernel 4-node paths and the 4-node signed path with a corrupt
+    signer; returns per-path launches, hash waves and verify waves.
 
     Each path's runs go in the order of its ``order`` string: H a host-path
     run, D a device run, P a device run traced by torch.profiler.  Every run
     is held to the first host-path run."""
+    import numpy as np
+
     from mirbft_tpu_torch.testengine import CryptoConfig, Spec
 
     paths = [
-        ("c3_auto", C3, dict(C3_PLANE, kernel="auto"), None, "HDDHP"),
-        ("4n_lanes", SMALL, dict(SMALL_PLANE, kernel="lanes"), "sha256_lanes", "HD"),
-        ("4n_scan", SMALL, dict(SMALL_PLANE, kernel="scan"), "sha256_batch", "HD"),
+        # name, Spec shape, plane, pinned hash kernel, order, Spec tweak
+        ("c3_auto", C3, dict(C3_PLANE, kernel="auto"), None, C3_ORDER, None),
+        ("c2_signed", C2, dict(C2_PLANE, kernel="auto"), None, C2_ORDER, None),
+        ("4n_lanes", SMALL, dict(SMALL_PLANE, kernel="lanes"), "sha256_lanes", "HD", None),
+        ("4n_scan", SMALL, dict(SMALL_PLANE, kernel="scan"), "sha256_batch", "HD", None),
+        ("4n_signed_corrupt", SMALL_SIGNED, dict(SMALL_SIGNED_PLANE, kernel="auto"), None,
+         "HD", corrupt_signer),
     ]
     out_dir = os.path.join(HERE, "chiprun_out")
     results = {}
-    for name, shape, crypto, pinned, order in paths:
-        unique = shape["client_count"] * shape["reqs_per_client"]
-        host_fp, walls, path_launches, waves = None, {"H": [], "D": []}, None, None
+    for name, shape, crypto, pinned, order, tweak in paths:
+        signed = shape.get("signed_requests", False)
+        corrupt = CORRUPT_CLIENT if tweak is corrupt_signer else None
+        target = {c: 0 if c == corrupt else shape["reqs_per_client"]
+                  for c in range(shape["client_count"])}
+        unique = sum(target.values())
+        host_fp, walls, path_launches, waves, verify_inputs = (
+            None, {"H": [], "D": []}, None, None, None)
         for run, kind in enumerate(order):
             if kind == "H":
-                _, steps, finals, wall, _ = run_spec(Spec(**shape))
+                with SignClock() as signing:
+                    _, steps, finals, wall, snap = run_spec(Spec(**shape, tweak_recorder=tweak))
                 if host_fp is None:
                     host_fp = (steps, finals)
                 elif (steps, finals) != host_fp:
                     raise AssertionError(f"{name}: host-path runs disagree")
                 walls["H"].append(wall)
-                log(f"path {name} run {run} host path: steps={steps} wall_s={wall:.3f}")
+                log(f"path {name} run {run} host path: steps={steps} wall_s={wall:.3f}" + (
+                    f" signing_s={signing.seconds:.3f} host_crypto_seconds="
+                    f"{snap.get('host_crypto_seconds', 0.0):.6f}" if signed else ""))
                 continue
             profile = None
             if kind == "P":
                 os.makedirs(out_dir, exist_ok=True)
                 profile = os.path.join(out_dir, f"trace_{name}.json")
             reset_launches()
-            with WaveLog() as run_waves:
+            with WaveLog() as run_waves, VerifyLog() as run_verify, SignClock() as signing:
                 recording, steps, finals, wall, snap = run_spec(
-                    Spec(**shape, crypto=CryptoConfig(**crypto, torch_device=DEVICE)),
+                    Spec(**shape, tweak_recorder=tweak,
+                         crypto=CryptoConfig(**crypto, torch_device=DEVICE)),
                     profile=profile,
                 )
             launches = read_launches()
             if (steps, finals) != host_fp:
                 raise AssertionError(f"{name}: device run diverged from the host-path run")
             for node in recording.nodes:
-                if sum(node.state.committed_reqs.values()) != unique:
-                    raise AssertionError(f"{name}: node {node.id} did not commit all {unique}")
+                got = {c: node.state.committed_reqs.get(c, 0) for c in target}
+                if got != target:
+                    raise AssertionError(f"{name}: node {node.id} committed {got}, not {target}")
             dispatches = int(snap.get("device_hash_dispatches", 0))
-            if dispatches <= 0 or sum(launches.values()) <= 0:
+            verifies = int(snap.get("device_verify_dispatches", 0))
+            if signed and (verifies <= 0 or launches["ed25519_verify"] <= 0):
+                raise AssertionError(f"{name}: no verify wave launched the kernel")
+            if not signed and dispatches <= 0:
                 raise AssertionError(f"{name}: no device hash wave launched")
             # The kernels this run resolved its waves to must each have
             # launched, and no other kernel may have.
             resolved = {f"sha256_{layout}" for (layout, _) in run_waves.waves}
+            if run_verify.waves:
+                resolved.add("ed25519_verify")
             if pinned is not None and resolved != {pinned}:
                 raise AssertionError(f"{name}: waves resolved to {resolved}, not {pinned}")
             for kernel, count in launches.items():
                 if (count > 0) != (kernel in resolved):
                     raise AssertionError(f"{name}: {kernel} launched {count} times")
             if path_launches is None:
-                path_launches, waves = launches, run_waves.waves
+                path_launches, waves, verify_inputs = (
+                    launches, run_waves.waves, run_verify.inputs)
             elif launches != path_launches:
                 raise AssertionError(f"{name}: launches {launches} != {path_launches}")
             if kind == "P":
-                busy, names = device_busy(profile)
-                log(f"path {name} run {run} device run under torch.profiler: "
-                    f"wall_s={wall:.3f} device_busy_s={busy:.9f} "
-                    f"idle_share={1 - busy / wall:.9f} device_events={names}"
-                    if names else
-                    f"path {name} run {run} device run under torch.profiler: "
-                    f"wall_s={wall:.3f}; the trace held no device events: not measured")
+                busy, names, kernels = device_busy(profile)
+                head = f"path {name} run {run} device run under torch.profiler: wall_s={wall:.3f}"
+                launched = sum(launches.values())
+                if kernels < launched:
+                    # The trace lost device records (its runtime calls are
+                    # there): a busy time from it would read too low.
+                    log(f"{head}; the trace holds {kernels} of the run's {launched} kernel "
+                        f"launches: idle share not measured; device_events={names}")
+                else:
+                    log(f"{head} device_busy_s={busy:.9f} idle_share={1 - busy / wall:.9f} "
+                        f"device_events={names}")
                 continue
             walls["D"].append(wall)
             device_msgs = int(snap.get("device_hashed_messages", 0))
@@ -476,7 +791,7 @@ def drive_paths():
             unique_host = host["oversize"] + host["straggler"]
             log(f"path {name} run {run} device run: steps={steps} (== host path) "
                 f"wall_s={wall:.3f} unique_req_per_s={unique / wall:.1f} "
-                f"committed={unique} on every node")
+                f"committed={target} on every node")
             log(f"path {name} run {run} hash traffic: device_hash_dispatches={dispatches} "
                 f"device_hashed_messages={device_msgs} host_hashed={host} "
                 f"host_share={total_host / max(1, total_host + device_msgs):.6f} "
@@ -486,13 +801,28 @@ def drive_paths():
                     "hash_pack_seconds_sum", "hash_device_dispatch_seconds_sum",
                     "device_wait_seconds_sum", "device_wait_seconds_count",
                     "host_crypto_seconds")))
+            if signed:
+                screened = rejected = 0
+                for valid, ok in run_verify.verdicts:
+                    screened += int((~valid).sum())
+                    rejected += int((valid & ~ok).sum())
+                log(f"path {name} run {run} verify traffic: device_verify_dispatches={verifies} "
+                    f"device_verified_signatures={int(snap.get('device_verified_signatures', 0))} "
+                    f"waves (rows, real rows)={run_verify.waves} "
+                    f"real rows the host screen rejected={screened} "
+                    f"real rows the kernel rejected={rejected} signing_s={signing.seconds:.3f} " +
+                    " ".join(f"{k}={snap.get(k, 0.0):.6f}" for k in (
+                        "verify_pack_seconds_sum", "verify_device_dispatch_seconds_sum",
+                        "device_dispatch_seconds")))
+                if corrupt is not None and rejected < 1:
+                    raise AssertionError(f"{name}: no corrupt row reached the kernel")
             log(f"path {name} run {run} launches: {launches} waves: "
                 f"{ {f'{k[0]}{list(k[1])}': v[0] for k, v in run_waves.waves.items()} }")
         if len(walls["H"]) > 1 or len(walls["D"]) > 1:
             host_s, dev_s = (sum(w) / len(w) for w in (walls["H"], walls["D"]))
             log(f"path {name} walls in order {order.replace('P', '')}: host {walls['H']} "
                 f"device {walls['D']}; mean device/host {dev_s / host_s:.4f}")
-        results[name] = (path_launches, waves)
+        results[name] = (path_launches, waves, verify_inputs)
     return results
 
 
@@ -505,13 +835,13 @@ def report(paths, worst, clock):
 
     kernels = []
     for name, (kernel, plain, layout, replaces) in kernel_table().items():
-        launches = sum(launches[name] for launches, _ in paths.values())
+        launches = sum(launches[name] for launches, _, _ in paths.values())
         if launches <= 0:
             raise AssertionError(f"{name} was launched on no path")
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
                "cycles_per_round": 0.0, "chain_floor_ms": 0.0}
         n = 0
-        for path, (_, waves) in paths.items():
+        for path, (_, waves, _) in paths.items():
             for (wave_layout, shape), (count, (blocks, n_blocks)) in waves.items():
                 if wave_layout != layout:
                     continue
@@ -545,7 +875,7 @@ def report(paths, worst, clock):
             "source": "mirbft_tpu_torch/csrc/sha256.cu",
             "replaces": replaces,
             "launches": launches,
-            "launches_by_path": {p: launches_[name] for p, (launches_, _) in paths.items()},
+            "launches_by_path": {p: entry[0][name] for p, entry in paths.items()},
             "max_abs_err": worst[name],
             "ms": tot["ms"] / n,
             "plain_ms": tot["plain_ms"] / n,
@@ -555,7 +885,58 @@ def report(paths, worst, clock):
             "chain_floor_ms": tot["chain_floor_ms"] / n,
             "cycles_per_round": tot["cycles_per_round"] / n,
         })
+    kernels.append(report_ed25519(paths, worst, clock))
     return kernels
+
+
+def report_ed25519(paths, worst, clock):
+    """The verify kernel's entry: timed on each verify wave shape the paths
+    launched, held to verify_torch there, averaged over the launches."""
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+
+    name = "ed25519_verify"
+    launches = sum(entry[0][name] for entry in paths.values())
+    if launches <= 0:
+        raise AssertionError(f"{name} was launched on no path")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0, "bytes": 0}
+    n = 0
+    for path, (_, _, inputs) in paths.items():
+        for rows, (count, packed) in (inputs or {}).items():
+            tensors = [torch.from_numpy(a).to(DEVICE) for a in packed[:5]]
+            got, want = e.ed25519_verify_kernel(*tensors), e.verify_torch(*tensors)
+            torch_sync()
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            worst[name] = max(worst[name], err)
+            if err:
+                raise AssertionError(f"{name}: kernel != plain on a path wave of {rows} rows")
+            ms = time_cuda(lambda: e.ed25519_verify_kernel(*tensors), repeats=5) * 1e3
+            plain_ms = time_plain(lambda: e.verify_torch(*tensors)) * 1e3
+            bound_ms, by = verify_bound(rows, clock[0])
+            log(f"path-wave {path} {name} rows={rows} valid_rows={int(packed[5].sum())} "
+                f"launches={count} ms={ms:.6f} plain_ms={plain_ms:.3f} "
+                f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f}")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bound_ms"] += count * bound_ms
+            tot["ops" if by == "operations" else "bytes"] += count
+            n += count
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/ed25519.cu",
+        "replaces": "mirbft_tpu/ops/ed25519.py:372",
+        "launches": launches,
+        "launches_by_path": {p: entry[0][name] for p, entry in paths.items()},
+        "max_abs_err": worst[name],
+        "ms": tot["ms"] / n,
+        "plain_ms": tot["plain_ms"] / n,
+        "bound_ms": tot["bound_ms"] / n,
+        "bound_by": "operations" if tot["ops"] >= tot["bytes"] else "bytes",
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -587,14 +968,23 @@ def main() -> int:
     seconds = _build.build_all()
     log(f"build: {seconds} wall_s={time.perf_counter() - start:.2f}")
     log(_build.ptxas_report("sha256").strip())
-    for name, (ops, static) in sass_mix(_build.so_path("sha256")).items():
+    log(_build.ptxas_report("ed25519").strip())
+    for name, (ops, static) in sass_mix(_build.so_path("sha256"), list(kernel_table())).items():
         int_ops = {k: v for k, v in ops.items() if k in INTEGER_ALU}
         log(f"sass {name}: {sum(ops.values())} instructions, integer ALU "
             f"{sum(int_ops.values())} {dict(sorted(int_ops.items()))}; "
             f"static_cycles_per_round={static:.2f}; all "
             f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    for name, (ops, _) in sass_mix(_build.so_path("ed25519"), ["ed25519_verify"]).items():
+        log(f"sass {name}: {sum(ops.values())} instructions (ladder and inversion loops "
+            f"appear once); local stack loads LDL={ops.get('LDL', 0)} stores "
+            f"STL={ops.get('STL', 0)}; all {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
 
-    from mirbft_tpu_torch.ops.crossover import hash_crossover_batch, measure_hash_probe
+    from mirbft_tpu_torch.ops.crossover import (
+        hash_crossover_batch,
+        measure_hash_probe,
+        measure_verify_probe,
+    )
     from mirbft_tpu_torch.ops import latency_probe
 
     latency, probe_hz = latency_probe.dependent_issue_latency()
@@ -611,12 +1001,15 @@ def main() -> int:
         f"per lane; {latency_probe.round_cycles(2):.3f} per step of two interleaved")
 
     worst = check_kernels(clock)
-    # The one-time crossover probe launches both kernels: take it before the
-    # paths, whose launch counts must hold path launches only.
+    worst["ed25519_verify"] = check_ed25519(clock)
+    # The one-time probes launch the kernels: take them before the paths,
+    # whose launch counts must hold path launches only.
     probe = measure_hash_probe("cuda")
     log(f"crossover: lanes_tile_s={probe[0]:.9f} batch_fixed_s={probe[1]:.9f} "
         f"batch_slope_s_per_msg={probe[2]:.15f} (128 to 4096 messages) "
         f"crossover_batch={hash_crossover_batch('cuda')}")
+    log(f"verify probe: vpu_s={measure_verify_probe('cuda')[0]:.9f} (256 zero rows); "
+        f"auto resolves to vpu, the card's one verify kernel")
 
     paths = drive_paths()
     kernels = report(paths, worst, clock)

@@ -43,6 +43,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_sha256_batch": ((_P, _P, _P, _I64, _I64, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
+    "ed25519": {
+        "mirbft_ed25519_verify": ((_P, _P, _P, _P, _P, _I64, _P, _P), ctypes.c_int),
+        "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    },
     "latency_probe": {
         "mirbft_chain_latency": ((_P, _I64, _I64, _P), ctypes.c_int),
         "mirbft_chain_links_per_trip": ((), _I64),

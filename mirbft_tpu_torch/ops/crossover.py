@@ -15,11 +15,16 @@ batch-major kernel pays a fixed cost per launch and scales per message.  So
   batch-major kernel.  ``TorchHasher`` takes the probe when it is built,
   so no wave's latency carries it.
 
+The verifier's field-multiply backend resolves the same way: ``auto`` is
+"vpu", the one verify kernel the card has (``measure_verify_probe`` times
+it; the tensor-core "mxu" formulation runs only as the CPU twin).
+
 Every resolver takes the backend name and the probe result as injectable
 arguments, so the CPU tests pin the resolution logic.  The environment
-override ``MIRBFT_TPU_TORCH_HASH_KERNEL`` short-circuits everything for A/B
-runs (a name of its own, so this package and the JAX package can be set
-apart in one process).
+overrides ``MIRBFT_TPU_TORCH_HASH_KERNEL`` and
+``MIRBFT_TPU_TORCH_VERIFY_KERNEL`` short-circuit everything for A/B runs
+(names of their own, so this package and the JAX package can be set apart
+in one process).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 
 ENV_HASH_KERNEL = "MIRBFT_TPU_TORCH_HASH_KERNEL"
+ENV_VERIFY_KERNEL = "MIRBFT_TPU_TORCH_VERIFY_KERNEL"
 
 # Probe shape: one lanes tile of 4-block messages — the smallest shape that
 # exercises the lanes kernel's real geometry, and the block bucket the
@@ -38,6 +44,7 @@ ENV_HASH_KERNEL = "MIRBFT_TPU_TORCH_HASH_KERNEL"
 # between the smallest and the largest wave the crossover can pick from.
 _PROBE_BLOCK_BUCKET = 4
 _PROBE_BATCHES = (128, 4096)
+_PROBE_VERIFY_BATCH = 256
 
 
 def time_cuda(fn: Callable[[], object], repeats: int = 20) -> float:
@@ -143,3 +150,44 @@ def resolve_hash_kernel(
     if batch >= hash_crossover_batch(backend, probe):
         return "lanes"
     return "scan"
+
+
+@functools.lru_cache(maxsize=None)
+def measure_verify_probe(backend: Optional[str] = None) -> Tuple[float, float]:
+    """(vpu_seconds, mxu_seconds) for one ``_PROBE_VERIFY_BATCH`` verify
+    wave on the card, by CUDA events.  The card has no "mxu" kernel yet
+    (``ed25519.MXU_NOT_PORTED``), so its time is infinite.  Only called for
+    the "cuda" backend (callers gate)."""
+    import torch
+
+    from .ed25519 import NUM_LIMBS, ed25519_verify_kernel
+
+    batch = _PROBE_VERIFY_BATCH
+    limbs = torch.zeros((batch, NUM_LIMBS), dtype=torch.int32, device="cuda")
+    bits = torch.zeros((batch, 256), dtype=torch.int32, device="cuda")
+    vpu_t = time_cuda(
+        lambda: ed25519_verify_kernel(limbs, limbs, limbs, bits, bits, backend="vpu"),
+        repeats=5,
+    )
+    return vpu_t, float("inf")
+
+
+def resolve_verify_backend(
+    requested: str,
+    backend: Optional[str] = None,
+    probe: Optional[Tuple[float, float]] = None,
+) -> str:
+    """Resolve a verifier's ``kernel`` setting: explicit names pass
+    through; ``auto`` is "vpu" on the CPU and on the card.  A probe, where
+    one is given, picks "mxu" exactly when it is faster; no probe is taken
+    by default, since the card has one verify kernel."""
+    if requested != "auto":
+        return requested
+    env = os.environ.get(ENV_VERIFY_KERNEL)
+    if env in ("vpu", "mxu"):
+        return env
+    backend = backend or _default_backend()
+    if backend != "cuda" or probe is None:
+        return "vpu"
+    vpu_t, mxu_t = probe
+    return "mxu" if mxu_t < vpu_t else "vpu"

@@ -3,11 +3,11 @@
 N in-process nodes (full state machine + processor stacks) share one
 time-ordered event queue with a per-category latency model and seeded
 randomness — multi-node consensus without a cluster, bit-for-bit
-reproducible.  With ``CryptoConfig(device=True)`` the cluster's hash waves
-run on the port's CUDA kernels.
+reproducible.  With ``CryptoConfig(device=True)`` the cluster's hash and
+signature-verification waves run on the port's CUDA kernels.
 """
 
-from .crypto import DeviceHashPlane
+from .crypto import DeviceAuthPlane, DeviceHashPlane
 from .queue import EventQueue, SimEvent
 from .recorder import (
     ClientConfig,
@@ -22,6 +22,7 @@ from .recorder import (
 __all__ = [
     "ClientConfig",
     "CryptoConfig",
+    "DeviceAuthPlane",
     "DeviceHashPlane",
     "EventQueue",
     "NodeConfig",

@@ -1,4 +1,4 @@
-"""Shared cross-node crypto plane: device-batched, content-memoized, async.
+"""Shared cross-node crypto planes: device-batched, content-memoized, async.
 
 In the simulated cluster every replica digests the same content, so the
 natural unit of device work is the *cluster-wide wave* of hash requests, not
@@ -25,10 +25,21 @@ messages above the block ladder (``host_hashed_oversize_messages``) and
 stragglers below ``device_floor`` (``host_hashed_straggler_messages``);
 ``device_hashed_messages`` counts the unique messages the kernels hashed.
 
-Ported from the JAX package's ``testengine/crypto.py``.  The signed-request
-``DeviceAuthPlane``, the fused pipeline and the cross-group
-``SharedWaveMux`` belong to later slices of the port and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``DeviceAuthPlane`` (signed-request mode, BASELINE configs 2-5)
+  * ``note(client_id, req_no)`` is called when a signed client proposal is
+    scheduled; the plane looks ahead through the client's next
+    ``lookahead`` request envelopes (the simulation analogue of batching the
+    replica's network-ingress queue) and accumulates unverified ones.
+  * Waves launch asynchronously through ``Ed25519BatchVerifier.dispatch``
+    (one CUDA kernel launch a wave); ``authenticate`` (the fire-time check)
+    serves memoized verdicts, collecting in-flight waves on a miss and
+    verifying envelopes below ``device_floor`` on the host.  Invalid
+    signatures are memoized as False — byzantine signers stay rejected on
+    the device path.
+
+Ported from the JAX package's ``testengine/crypto.py``.  The fused pipeline
+and the cross-group ``SharedWaveMux`` belong to later slices of the port and
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,17 +47,13 @@ from __future__ import annotations
 import hashlib
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from .. import metrics, tracing
 
 # Parts of the JAX package's crypto planes that later slices port; each
 # entry point raises with its ROADMAP.md item ("Next, in order").
 NOT_PORTED = {
-    "signed": (
-        "signed requests (ed25519 verify + DeviceAuthPlane) are not ported "
-        "yet: ROADMAP.md, 'Next, in order' item 1"
-    ),
     "fused": (
         "the fused hash-verify-quorum pipeline and the shared wave mux are "
         "not ported yet: ROADMAP.md, 'Next, in order' item 3"
@@ -524,7 +531,246 @@ class SharedWaveMux:
 
 
 class DeviceAuthPlane:
-    """Cross-node Ed25519 request authentication (a later slice)."""
+    """Cross-node Ed25519 request authentication: verdict-memoized,
+    lookahead-batched, async (see module docstring).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED["signed"])
+    One instance per Recording; nodes share it the way they share the hash
+    plane — a verdict is a pure function of (client key, req_no, envelope).
+    """
+
+    def __init__(
+        self,
+        chunk_provider: Callable[[int, int], List[Tuple[int, bytes]]],
+        device: bool = True,
+        wave_size: int = 128,
+        device_floor: int = 16,
+        lookahead: int = 128,
+        mesh_devices: int = 0,
+        verify_kernel: str = "auto",
+        torch_device="cuda",
+    ):
+        from ..ops.ed25519 import Ed25519BatchVerifier
+
+        if mesh_devices:
+            raise NotImplementedError(NOT_PORTED["mesh"])
+        self.chunk_provider = chunk_provider
+        self.device = device
+        self.wave_size = wave_size
+        self.device_floor = device_floor
+        self.lookahead = lookahead
+        # ``verify_kernel``: "auto" resolves through ops/crossover.py at
+        # dispatch time; explicit "mxu"/"vpu" pins the field-multiply
+        # backend.  ``torch_device``: "cuda" launches the CUDA kernel, "cpu"
+        # runs its plain PyTorch twin.  A host-path plane (device=False)
+        # never launches, so its verifier sits on the CPU and a host-path
+        # signed run needs no card.
+        self.verifier = Ed25519BatchVerifier(
+            min_device_batch=device_floor,
+            kernel=verify_kernel,
+            device=torch_device if device else "cpu",
+        )
+        self.keys: Dict[int, bytes] = {}
+        # (client_id, req_no, id(envelope)) -> (envelope ref, verdict);
+        # bounded like the hash memo (entries pin their envelope objects)
+        self._memo: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._memo_cap = 1 << 17
+        self._pending: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._inflight: List[tuple] = []  # (keys, items, handle)
+        # keys dispatched but not yet materialized (prevents re-enqueue);
+        # values pin the envelope objects so ids stay unique
+        self._issued: Dict[tuple, bytes] = {}
+        self.verified_count = 0
+
+    def register(self, client_id: int, public_key: bytes) -> None:
+        if len(public_key) != 32:
+            raise ValueError("ed25519 public keys are 32 bytes")
+        self.keys[client_id] = public_key
+
+    def remove(self, client_id: int) -> None:
+        """Deregister a client (reconfiguration): drop its key AND every
+        cached/pending/in-flight-issued verdict — a removed client's
+        envelopes must stop authenticating immediately."""
+        self.keys.pop(client_id, None)
+        for store in (self._memo, self._pending, self._issued):
+            for key in [k for k in store if k[0] == client_id]:
+                del store[key]
+
+    # -- scheduler-side -----------------------------------------------------
+
+    def note(self, client_id: int, req_no: int) -> None:
+        """A signed proposal was scheduled: enqueue this client's next
+        ``lookahead`` unverified envelopes (the ingress-queue batch) and
+        launch an async wave if full."""
+        memo = self._memo
+        pending = self._pending
+        added = False
+        for rn, envelope in self.chunk_provider(client_id, req_no)[: self.lookahead]:
+            # mirlint: allow(id-ordering) — identity memo key; entries pin
+            # the envelope and are is-checked at fire time, never ordered.
+            key = (client_id, rn, id(envelope))
+            if key in memo or key in pending or key in self._issued:
+                continue
+            pending[key] = (client_id, rn, envelope)
+            added = True
+        if added:
+            metrics.gauge("auth_wave_queue_depth").set(len(pending))
+            if len(pending) >= self.wave_size:
+                self._launch_wave()
+
+    def _launch_wave(self) -> None:
+        """Dispatch the pending set in ``wave_size`` chunks; the dispatcher
+        pads each chunk to the same power-of-two batch shape, so every launch
+        of a run has one shape."""
+        pending, self._pending = self._pending, OrderedDict()
+        if not pending:
+            return
+        all_keys = list(pending.keys())
+        for start in range(0, len(all_keys), self.wave_size):
+            keys = all_keys[start : start + self.wave_size]
+            items = [pending[k] for k in keys]
+            pack_start = time.perf_counter()
+            packed = self._pack(items)
+            if self.device and len(items) >= self.device_floor:
+                if len(items) < self.wave_size:
+                    # Pad to the wave shape with throwaway rows so every
+                    # launch has the same shape.
+                    pad = self.wave_size - len(items)
+                    packed = (
+                        list(packed[0]) + [b"\x00" * 32] * pad,
+                        list(packed[1]) + [b""] * pad,
+                        list(packed[2]) + [b"\x00" * 64] * pad,
+                    )
+                # Envelope unsealing and payload assembly are host crypto
+                # work.  The dispatch call is metered separately, as the JAX
+                # package meters it: it holds the verifier's packing (SHA-512
+                # challenges, key decompression, limb conversion; its own
+                # ``verify_pack_seconds``), the copy in and the launch, and
+                # the first launch of a process also loads the kernel's
+                # library.
+                metrics.counter("host_crypto_seconds").inc(
+                    time.perf_counter() - pack_start
+                )
+                tracer = tracing.default_tracer
+                dispatch_ts = tracer.now() if tracer.enabled else 0.0
+                dispatch_start = time.perf_counter()
+                handle = self.verifier.dispatch(*packed, n_real=len(items))
+                metrics.counter("device_dispatch_seconds").inc(
+                    time.perf_counter() - dispatch_start
+                )
+                self._inflight.append((keys, items, handle, dispatch_ts))
+                for key, item in zip(keys, items):
+                    self._issued[key] = item[2]
+                metrics.counter("device_verify_dispatches").inc()
+                metrics.counter("device_verified_signatures").inc(len(items))
+            else:
+                self._verify_host(keys, items, packed)
+        metrics.gauge("auth_waves_in_flight").set(len(self._inflight))
+
+    def take_pending(self):
+        """Drain the pending set into a fused wave (``ops/fused.py``):
+        returns ``(keys, items, (pubs, msgs, sigs))``, or three ``None``s
+        when nothing is pending.  The caller's fused collect writes the
+        verdicts back through ``_memo_put``; entries are NOT marked issued
+        — an ``authenticate`` racing the fused wave just re-verifies on
+        host, which memoizes the identical verdict."""
+        if not self._pending:
+            return None, None, None
+        pending, self._pending = self._pending, OrderedDict()
+        keys = list(pending.keys())
+        items = [pending[k] for k in keys]
+        start = time.perf_counter()
+        packed = self._pack(items)
+        metrics.counter("host_crypto_seconds").inc(time.perf_counter() - start)
+        metrics.gauge("auth_wave_queue_depth").set(0)
+        metrics.counter("device_verify_dispatches").inc()
+        metrics.counter("device_verified_signatures").inc(len(items))
+        return keys, items, packed
+
+    def _pack(self, items) -> Tuple[List[bytes], List[bytes], List[bytes]]:
+        from ..processor.verify import signing_payload, unseal
+
+        pubs: List[bytes] = []
+        msgs: List[bytes] = []
+        sigs: List[bytes] = []
+        for client_id, req_no, envelope in items:
+            pub = self.keys.get(client_id)
+            parts = unseal(envelope)
+            if pub is None or parts is None:
+                # Structurally invalid: keep the row (all-zero signature
+                # fails verification) so indices stay aligned.
+                pubs.append(b"\x00" * 32)
+                msgs.append(b"")
+                sigs.append(b"\x00" * 64)
+                continue
+            payload, signature = parts
+            pubs.append(pub)
+            msgs.append(signing_payload(client_id, req_no, payload))
+            sigs.append(signature)
+        return pubs, msgs, sigs
+
+    def _verify_host(self, keys, items, packed) -> None:
+        from ..ops.ed25519 import verify_one
+
+        pubs, msgs, sigs = packed
+        start = time.perf_counter()
+        for key, item, pub, msg, sig in zip(keys, items, pubs, msgs, sigs):
+            self._memo_put(key, item[2], bool(verify_one(pub, msg, sig)))
+        metrics.counter("host_crypto_seconds").inc(time.perf_counter() - start)
+        self.verified_count += len(keys)
+
+    def _memo_put(self, key: tuple, envelope: bytes, verdict: bool) -> None:
+        memo = self._memo
+        memo[key] = (envelope, verdict)
+        if len(memo) > self._memo_cap:
+            memo.popitem(last=False)
+
+    # -- fire-time ----------------------------------------------------------
+
+    def authenticate(self, client_id: int, req_no: int, envelope: bytes) -> bool:
+        # mirlint: allow(id-ordering) — identity memo lookup (see above).
+        key = (client_id, req_no, id(envelope))
+        entry = self._memo.get(key)
+        if entry is not None and entry[0] is envelope:
+            return entry[1]
+        # Miss: pull this client's ingress chunk in, flush the wave, and
+        # materialize everything in flight.
+        self.note(client_id, req_no)
+        if self._pending:
+            self._launch_wave()
+        self._materialize_inflight()
+        entry = self._memo.get(key)
+        if entry is not None and entry[0] is envelope:
+            return entry[1]
+        # Envelope object unknown to the provider (e.g. mangled/foreign
+        # bytes): verify directly on host.
+        keys = [key]
+        items = [(client_id, req_no, envelope)]
+        self._verify_host(keys, items, self._pack(items))
+        return self._memo[key][1]
+
+    def _materialize_inflight(self) -> None:
+        if not self._inflight:
+            return
+        start = time.perf_counter()
+        tracer = tracing.default_tracer
+        inflight, self._inflight = self._inflight, []
+        for keys, items, handle, dispatch_ts in inflight:
+            verdicts = self.verifier.collect(handle)
+            for key, item, verdict in zip(keys, items, verdicts):
+                self._issued.pop(key, None)
+                if key[0] not in self.keys:
+                    continue  # client removed while the dispatch was in flight
+                self._memo_put(key, item[2], bool(verdict))
+            self.verified_count += len(keys)
+            if tracer.enabled and dispatch_ts:
+                tracer.complete(
+                    "auth_wave",
+                    dispatch_ts,
+                    pid=0,
+                    tid=2,
+                    args={"signatures": len(keys)},
+                )
+        metrics.gauge("auth_waves_in_flight").set(len(self._inflight))
+        metrics.histogram("device_wait_seconds").observe(
+            time.perf_counter() - start
+        )

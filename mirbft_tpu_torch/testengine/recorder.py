@@ -9,10 +9,9 @@ per work category).  ``drain_clients`` runs the simulation until every
 client's requests commit on every node.
 
 Ported from the JAX package's ``testengine/recorder.py``: the device hash
-plane runs the port's CUDA kernels (``CryptoConfig.torch_device``), and the
-parts later slices port (signed clients, the fused pipeline, the shared wave
-mux, mesh sharding) raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+and auth planes run the port's CUDA kernels (``CryptoConfig.torch_device``),
+and the parts later slices port (the fused pipeline, the shared wave mux,
+mesh sharding) raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -331,11 +330,12 @@ class ReconfigPoint:
 class CryptoConfig:
     """Crypto-plane knobs (see ``testengine/crypto.py``).
 
-    ``device=True`` routes wave-aggregated SHA-256 hashing through
-    asynchronous kernel launches on ``torch_device`` ("cuda", the default,
-    or "cpu" for the kernels' plain twins); ``False`` (default) keeps the
-    memoized host paths.  Digests are bit-identical either way and the
-    simulation's event schedule is unaffected."""
+    ``device=True`` routes wave-aggregated SHA-256 hashing and Ed25519
+    verification through asynchronous kernel launches on ``torch_device``
+    ("cuda", the default, or "cpu" for the kernels' plain twins); ``False``
+    (default) keeps the memoized host paths.  Digests/verdicts are
+    bit-identical either way and the simulation's event schedule is
+    unaffected."""
 
     device: bool = False
     hash_wave: int = 192
@@ -373,8 +373,8 @@ class CryptoConfig:
     # digests/verdicts stay bit-identical (tests/test_wave_mux.py).
     mux: object = None
     mux_group: int = 0
-    # Where the hash plane's waves run: "cuda" launches the CUDA kernels,
-    # "cpu" their plain PyTorch twins.
+    # Where the planes' waves run: "cuda" launches the CUDA kernels, "cpu"
+    # their plain PyTorch twins.
     torch_device: str = "cuda"
 
 
@@ -385,9 +385,18 @@ class SimClient:
 
     def __init__(self, config: ClientConfig):
         self.config = config
+        self._keys = None
+        self._sealed: Dict[int, bytes] = {}
 
     def _keypair(self):
-        raise NotImplementedError(NOT_PORTED["signed"])
+        if self._keys is None:
+            from ..ops.ed25519 import keypair_from_seed
+
+            seed = hashlib.sha256(
+                b"mirbft-tpu-sim-client-" + _u64(self.config.id)
+            ).digest()
+            self._keys = keypair_from_seed(seed)
+        return self._keys
 
     def public_key(self) -> bytes:
         return self._keypair()[0]
@@ -398,7 +407,23 @@ class SimClient:
         payload = _u64(self.config.id) + b"-" + _u64(req_no)
         if not self.config.signed:
             return payload
-        raise NotImplementedError(NOT_PORTED["signed"])
+        sealed = self._sealed.get(req_no)
+        if sealed is None:
+            from ..processor.verify import seal, signing_payload
+
+            if self.config.corrupt:
+                # Byzantine signer: deterministic garbage in place of a
+                # valid signature (fails verification at every replica).
+                signature = hashlib.sha512(
+                    b"corrupt-" + _u64(self.config.id) + _u64(req_no)
+                ).digest()
+            else:
+                signature = self._keypair()[1](
+                    signing_payload(self.config.id, req_no, payload)
+                )
+            sealed = seal(payload, signature)
+            self._sealed[req_no] = sealed
+        return sealed
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +579,7 @@ class Recorder:
                 device_floor=crypto.auth_floor,
                 lookahead=crypto.lookahead,
                 mesh_devices=crypto.mesh_devices,
+                torch_device=crypto.torch_device,
             )
             for client_id, pub in signed_pubs.items():
                 auth_plane.register(client_id, pub)

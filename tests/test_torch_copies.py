@@ -33,6 +33,7 @@ VERBATIM = [
     "processor/replicas.py",
     "processor/serial.py",
     "processor/work.py",
+    "processor/verify.py",
     "_native/__init__.py",
     "_native/ackplane.cpp",
     "_native/.gitignore",
@@ -82,3 +83,31 @@ def test_packed_host_side_of_sha256_is_copied():
     start = ref.index("def pad_message(")
     end = ref.index("@functools.partial(jax.jit, donate_argnums")
     assert ref[start:end].rstrip() in port
+
+
+def _blocks(ref, starts_ends):
+    for start, end in starts_ends:
+        i = ref.index(start)
+        yield ref[i : ref.index(end, i)].rstrip()
+
+
+def test_host_side_of_ed25519_is_copied():
+    """The host half of ops/ed25519.py (curve constants, limb helpers, nibble
+    matrices, the pure-Python RFC 8032 code, the key caches and the S < L
+    screen, and the verifier's key and packing methods) is carried as block
+    copies inside the port's module."""
+    with open(os.path.join(REF, "ops", "ed25519.py"), encoding="utf-8") as fh:
+        ref = fh.read()
+    with open(os.path.join(PORT, "ops", "ed25519.py"), encoding="utf-8") as fh:
+        port = fh.read()
+    blocks = list(_blocks(ref, [
+        ("P = 2**255 - 19", "\n\n\ndef int_to_limbs"),
+        ("def int_to_limbs(", "\n\n\n# ----"),
+        ("def _build_nibble_mats(", "\n\n\ndef _dot_bf16"),
+        ("def _sc_from_bytes_le(", "\n\n\ndef _next_pow2"),
+        ("def _next_pow2(", "\n\n\nclass Ed25519BatchVerifier"),
+        ("    def _decompress_pub(", "\n\n    def dispatch("),
+    ]))
+    assert len(blocks) == 6 and all(len(b) > 300 for b in blocks)
+    for block in blocks:
+        assert block in port

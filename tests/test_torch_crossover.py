@@ -5,7 +5,8 @@ Mirrors tests/test_kernel_crossover.py's injected-probe tests with
 the backend name and probe timings; the probe itself runs on the card
 (chip_smoke.py).  Also pins that CPU tensors always resolve to the plain
 twin ("scan") and that the port reads its own environment override, not the
-JAX package's.
+JAX package's.  The verifier's backend resolves to "vpu" on both devices
+(the card has one verify kernel); an injected probe can still pick "mxu".
 """
 
 import hashlib
@@ -13,12 +14,16 @@ import hashlib
 import pytest
 
 from mirbft_tpu.ops.crossover import resolve_hash_kernel as ref_resolve
+from mirbft_tpu.ops.crossover import resolve_verify_backend as ref_resolve_verify
 from mirbft_tpu_torch import metrics, tracing
 from mirbft_tpu_torch.ops.crossover import (
     ENV_HASH_KERNEL,
+    ENV_VERIFY_KERNEL,
     hash_crossover_batch,
     resolve_hash_kernel,
+    resolve_verify_backend,
 )
+from mirbft_tpu_torch.ops.ed25519 import Ed25519BatchVerifier
 from mirbft_tpu_torch.ops.sha256 import TorchHasher
 
 # One lanes tile costs as much as the batch-major kernel's fixed cost and
@@ -30,6 +35,8 @@ PROBE = (301e-5, 1e-5, 1e-5)
 def _reset_port_observability(monkeypatch):
     monkeypatch.delenv(ENV_HASH_KERNEL, raising=False)
     monkeypatch.delenv("MIRBFT_TPU_HASH_KERNEL", raising=False)
+    monkeypatch.delenv(ENV_VERIFY_KERNEL, raising=False)
+    monkeypatch.delenv("MIRBFT_TPU_VERIFY_KERNEL", raising=False)
     metrics.default_registry.reset()
     tracing.default_tracer.clear()
     tracing.default_tracer.enabled = False
@@ -97,3 +104,29 @@ def test_env_override_lanes_routes_cpu_waves_through_the_lanes_twin(monkeypatch)
     assert packed.layout == "lanes"
     handle = hasher.dispatch_packed(packed)
     assert hasher.collect(handle) == [hashlib.sha256(m).digest() for m in messages]
+
+
+@pytest.mark.parametrize("backend", ["cpu", "cuda"])
+def test_verify_backend_auto_is_vpu(backend):
+    assert resolve_verify_backend("auto", backend=backend) == "vpu"
+    assert Ed25519BatchVerifier(device="cpu").resolved_kernel() == "vpu"
+
+
+def test_verify_backend_explicit_and_injected_probe():
+    for explicit in ("vpu", "mxu"):
+        assert resolve_verify_backend(explicit, backend="cuda") == explicit
+        assert Ed25519BatchVerifier(device="cpu", kernel=explicit).resolved_kernel() == explicit
+    # The card's probe reports no mxu kernel (infinite time) ...
+    assert resolve_verify_backend("auto", backend="cuda", probe=(2e-3, float("inf"))) == "vpu"
+    # ... and a faster mxu kernel would win it, as on the reference's chip.
+    assert resolve_verify_backend("auto", backend="cuda", probe=(2e-3, 1e-3)) == "mxu"
+    assert resolve_verify_backend("auto", backend="cpu", probe=(2e-3, 1e-3)) == "vpu"
+
+
+def test_verify_env_overrides_are_per_package(monkeypatch):
+    monkeypatch.setenv(ENV_VERIFY_KERNEL, "mxu")
+    assert resolve_verify_backend("auto", backend="cpu") == "mxu"
+    assert ref_resolve_verify("auto", backend="cpu") == "vpu"
+    monkeypatch.delenv(ENV_VERIFY_KERNEL)
+    monkeypatch.setenv("MIRBFT_TPU_VERIFY_KERNEL", "mxu")
+    assert resolve_verify_backend("auto", backend="cpu") == "vpu"

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain twin and
-hashlib, and the device hash plane end to end.
+hashlib or ``verify_one``, and the device hash plane end to end.
 
 Marked ``cuda`` and skipped where no card is present (a fixture decides, at
 run time).  On the machine with the card, where the JAX package is not
@@ -10,6 +10,7 @@ installed, run them without the repo's conftest (which imports jax)::
 The file imports nothing of JAX or the JAX package.
 """
 
+import functools
 import hashlib
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from mirbft_tpu_torch import metrics
+from mirbft_tpu_torch.ops import ed25519
 from mirbft_tpu_torch.ops.sha256 import (
     _H0,
     TorchHasher,
@@ -162,3 +164,61 @@ def test_hasher_on_the_card(kernel):
         hashlib.sha256(b"".join(p)).digest() for p in batches
     ]
     hasher.collect(handle)
+
+
+@functools.lru_cache(maxsize=None)
+def _signed_rows():
+    """48 signed rows (a quarter tampered in R, a quarter in the message),
+    packed to 64 with 16 padding rows, and their ``verify_one`` verdicts."""
+    pubs, msgs, sigs = [], [], []
+    for i in range(48):
+        pub, sign = ed25519.keypair_from_seed((i + 1).to_bytes(4, "big") * 8)
+        msg = b"card-%d" % i
+        sig = sign(msg)
+        if i % 4 == 1:
+            sig = sig[:3] + bytes([sig[3] ^ 1]) + sig[4:]
+        elif i % 4 == 2:
+            msg += b"!"
+        pubs.append(pub)
+        msgs.append(msg)
+        sigs.append(sig)
+    arrays = ed25519.Ed25519BatchVerifier(device="cpu").pack_inputs(pubs, msgs, sigs, batch=64)
+    expected = [ed25519.verify_one(*row) for row in zip(pubs, msgs, sigs)]
+    return (pubs, msgs, sigs), arrays, expected
+
+
+@pytest.mark.parametrize("rows", [1, 33, 1024])
+def test_ed25519_kernel_equals_twin_and_verify_one(rows):
+    _, arrays, expected = _signed_rows()
+    pick = np.arange(rows) % 64
+    inputs = [torch.from_numpy(np.ascontiguousarray(a[pick])).cuda() for a in arrays[:5]]
+    before = ed25519.ed25519_verify_kernel.launches
+    got = ed25519.ed25519_verify_kernel(*inputs)
+    torch.cuda.synchronize()
+    assert ed25519.ed25519_verify_kernel.launches == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, ed25519.verify_torch(*inputs))
+    verdicts = got.cpu().numpy() & arrays[5][pick]
+    for i, row in enumerate(pick):
+        assert verdicts[i] == (expected[row] if row < 48 else False)
+
+
+def test_ed25519_wrapper_rejects_what_the_kernel_does_not_take():
+    limbs = torch.zeros((8, 32), dtype=torch.int32, device="cuda")
+    bits = torch.zeros((8, 256), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        ed25519.ed25519_verify_kernel(limbs.to(torch.int64), limbs, limbs, bits, bits)
+    with pytest.raises(ValueError):
+        ed25519.ed25519_verify_kernel(limbs, limbs, limbs, bits[:, :32].contiguous(), bits)
+    with pytest.raises(ValueError):
+        ed25519.ed25519_verify_kernel(limbs, limbs.cpu(), limbs, bits, bits)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ed25519.ed25519_verify_kernel(limbs, limbs, limbs, bits, bits, backend="mxu")
+
+
+def test_ed25519_verifier_on_the_card():
+    (pubs, msgs, sigs), _, expected = _signed_rows()
+    verifier = ed25519.Ed25519BatchVerifier(min_device_batch=1)
+    handle = verifier.dispatch(pubs, msgs, sigs)
+    assert handle.event is not None and handle.ok.is_cuda
+    assert verifier.collect(handle).tolist() == expected
+    assert verifier.verify_batch(pubs[:20], msgs[:20], sigs[:20]).tolist() == expected[:20]

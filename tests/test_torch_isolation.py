@@ -4,7 +4,8 @@
 
 One subprocess makes both unimportable (``sys.modules[name] = None``),
 imports every module of the port and runs the 4-node recording with the
-device hash plane on the CPU twins.  A text scan of the sources catches
+device hash plane on the CPU twins, then a signed 4-node recording with
+the device auth plane on the Ed25519 twin.  A text scan of the sources catches
 imports that the run does not reach.
 """
 
@@ -31,14 +32,23 @@ spec = Spec(node_count=4, client_count=4, reqs_per_client=20, batch_size=5,
                                 defer_unready=False, torch_device="cpu"))
 steps = spec.recorder().recording().drain_clients(timeout=200_000)
 assert metrics.snapshot().get("device_hash_dispatches", 0) > 0
+metrics.default_registry.reset()
+signed = Spec(node_count=4, client_count=4, reqs_per_client=4, batch_size=2,
+              signed_requests=True,
+              crypto=CryptoConfig(device=True, hash_wave=4, hash_floor=1, auth_wave=16,
+                                  auth_floor=1, defer_unready=False, torch_device="cpu"))
+signed_steps = signed.recorder().recording().drain_clients(timeout=200_000)
+assert metrics.snapshot().get("device_verify_dispatches", 0) > 0
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m == "mirbft_tpu" or m.startswith("mirbft_tpu.")))
-print("modules", len(names), "steps", steps, "leaked", leaked)
+print("modules", len(names), "steps", steps, "signed_steps", signed_steps, "leaked", leaked)
 """
 
 
 def test_port_runs_with_jax_and_reference_unimportable():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # One intra-op thread: the child's twins run many small ops beside the
+    # other test workers.
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c", _CHILD],
         cwd=ROOT,
@@ -49,7 +59,7 @@ def test_port_runs_with_jax_and_reference_unimportable():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "leaked []" in out.stdout, out.stdout
-    assert "steps 746" in out.stdout, out.stdout
+    assert "steps 746 signed_steps 1169" in out.stdout, out.stdout
 
 
 _JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
