@@ -6,8 +6,8 @@ source, in one process on one card, in turns.
 
 OTHER.cu must export the same launchers with the same signatures
 (``mirbft_sha256_batch``, ``mirbft_sha256_lanes``); it builds with the
-port's nvcc flags beside the port's own library.  The waves are those the
-paths of ``chip_smoke.py`` launch (c3 on kernel="auto" and the two pinned
+port's nvcc flags beside the port's own library (``_build.other_library``).
+The waves are those the paths of ``chip_smoke.py`` launch (c3 on kernel="auto" and the two pinned
 4-node paths, captured from one device run of each) and its 18 ladder
 shapes.  At each wave both launchers run on the same device inputs, in the
 order other, this, this, other (CUDA events, ``crossover.time_cuda``), and
@@ -20,38 +20,11 @@ nonzero without a card.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import json
 import os
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def build_other(source):
-    """Build ``source`` into the port's build directory; the loaded library
-    with the sha256 launchers' ctypes signatures."""
-    from mirbft_tpu_torch.ops import _build
-
-    with open(source, "rb") as fh:
-        key = hashlib.sha256(fh.read() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()
-    target = os.path.join(_build.BUILD_DIR, f"libab-{key[:16]}.so")
-    if not os.path.exists(target):
-        os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        out = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", target, source],
-            capture_output=True, text=True, timeout=600,
-        )
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {source}:\n{out.stdout}{out.stderr}")
-        print(f"build {source}: {out.stdout.strip()}", flush=True)
-    lib = ctypes.CDLL(target)
-    for fn, (argtypes, restype) in _build.SIGNATURES["sha256"].items():
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = restype
-    return lib
 
 
 def path_waves():
@@ -106,7 +79,8 @@ def main(argv) -> int:
     from mirbft_tpu_torch.ops.sha256 import wave_to_torch
 
     smi = chip_smoke.nvidia_smi_line()
-    libs = {"other": build_other(argv[1]), "this": _build.library("sha256")}
+    libs = {"other": _build.other_library("sha256", argv[1]), "this": _build.library("sha256")}
+    print(f"build {argv[1]}: {_build.ptxas_report('sha256', argv[1]).strip()}", flush=True)
     clock = (chip_smoke.sm_clock_hz(), dependent_issue_latency()[0])
     print(f"ab: other={argv[1]} this=mirbft_tpu_torch/csrc/sha256.cu "
           f"sm_clock_mhz={clock[0] / 1e6:.0f} dependent_issue_latency_cycles={clock[1]:.4f} "

@@ -12,8 +12,9 @@ Phases (any failure raises, and the script exits nonzero without a result):
             stack) and each kernel's SASS instruction mix (cuobjdump).  Then
             the SM clock (nvidia-smi, sampled while a spin kernel runs) and
             the integer pipes (csrc/latency_probe.cu): the dependent-issue
-            latency, the issue cost of each instruction kind, and the
-            kernels' round chain alone.
+            latency, the issue cost of each instruction kind, the SHA-256
+            kernels' round chain alone, and the latency of each Ed25519
+            field operation.
 3. kernels  each kernel at every shape the hash plane gives it (block buckets
             4/16/64, waves of 64/1024/4096, ragged n_blocks including 0 and
             garbage words past every row's last block), at edge shapes (row
@@ -21,13 +22,14 @@ Phases (any failure raises, and the script exits nonzero without a result):
             one live row in 1,024) against its plain PyTorch version on the
             card (exact) and hashlib (a sample of rows); CUDA-event times
             beside the bound, the chain floor and the cycles per round.
-            Then the Ed25519 verify kernel at batches 1, 31, 33, 256, 1,024
-            and 4,096 drawn from RFC 8032 TEST 1-3, signatures by sign_one,
-            tampered R, S, message and key, small-order keys, a non-canonical
-            R and all-zero padding rows: bit for bit against verify_torch on
-            the card and against verify_one on up to 64 sampled rows a batch;
-            S >= L unscreened (kernel and twin agree, and accept it, which is
-            why the host screens it) and through the verifier (rejected).
+            Then the Ed25519 verify kernel at batches 1, 7, 9, 16, 31, 33,
+            256, 1,024 and 4,096 drawn from RFC 8032 TEST 1-3, signatures
+            by sign_one, tampered R, S, message and key, small-order keys, a
+            non-canonical R and all-zero padding rows: bit for bit against
+            verify_torch on the card and against verify_one on up to 64
+            sampled rows a batch; S >= L unscreened (kernel and twin agree,
+            and accept it, which is why the host screens it) and through
+            the verifier (rejected).
 4. paths    the main path: the c3 Recording (64 replicas, 64 clients x 100
             requests, batch 100) with the device hash plane on kernel="auto",
             held to the port's host-path run of the same Spec (steps and
@@ -57,6 +59,10 @@ each, at the IMAD rate (64 lanes per SM per clock: the issue probe of
 csrc/latency_probe.cu reads ~2.1 cycles per warp IMAD) and
 the sampled SM clock; the byte time moves each row's 2,432 input bytes and
 its verdict at the HBM rate.  Every row of a launch runs the full ladder.
+The bound counts the work, not how the kernel spreads it.  Beside it,
+cycles_per_mul is the launch's time at the sampled SM clock over the 1,295
+field multiplies one lane of csrc/ed25519.cu runs in series (four lanes
+share a signature's multiplies: one of each formula stage).
 
 SHA-256 bounds: the operations of one live 64-byte block are counted as sm_90
 instructions at their fan-in (a rotate is one SHF, any two- or three-input
@@ -134,7 +140,9 @@ C2_PLANE = dict(device=True, hash_wave=64, hash_floor=8, auth_wave=1024,
 SMALL_SIGNED = dict(SMALL, signed_requests=True)
 SMALL_SIGNED_PLANE = dict(SMALL_PLANE, auth_wave=16, auth_floor=1)
 CORRUPT_CLIENT = 3
-VERIFY_BATCHES = (1, 31, 33, 256, 1024, 4096)
+# Row counts that fill no whole warp of 8 signatures (7, 9), the 4-node
+# path's wave (16), c2's (1,024) and more.
+VERIFY_BATCHES = (1, 7, 9, 16, 31, 33, 256, 1024, 4096)
 VERIFY_SAMPLE = 64  # verify_one rows a batch (~9 ms each in pure Python)
 SIGNED_KEYS = 96  # signatures by sign_one under distinct keys
 # One verification: 4,375 field multiplies of 72 products, two IMAD halves
@@ -142,6 +150,10 @@ SIGNED_KEYS = 96  # signatures by sign_one under distinct keys
 IMAD_PER_VERIFY = 4375 * 72 * 2
 IMAD_LANES_PER_SM = 64
 VERIFY_BYTES_PER_ROW = 3 * 32 * 4 + 2 * 256 * 4 + 1
+# Field multiplies one lane of csrc/ed25519.cu runs in series for a
+# signature: 5 to set up the table, 4 a ladder step (one of each formula
+# stage), the inversion's 265 and one for x or y.
+VERIFY_SERIAL_MULS = 5 + 256 * 4 + 265 + 1
 
 
 def log(*args):
@@ -427,6 +439,12 @@ def verify_bound(rows, hz):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
+def cycles_per_mul(ms, clock):
+    """A verify launch's time at the sampled SM clock over the field
+    multiplies one lane runs in series."""
+    return ms * 1e-3 * clock[0] / VERIFY_SERIAL_MULS
+
+
 def check_ed25519(clock):
     """Phase 3, Ed25519: the verify kernel at every listed batch against
     verify_torch on the card (exact) and verify_one (sampled rows)."""
@@ -485,6 +503,7 @@ def check_ed25519(clock):
         log(f"kernel ed25519_verify batch={batch} verified={int(verdicts.sum())} "
             f"padding={int((pick >= len(pubs)).sum())} ms={ms:.6f} plain_ms={plain_ms:.3f} "
             f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f} "
+            f"cycles_per_mul={cycles_per_mul(ms, clock):.1f} "
             f"max_abs_err={err} verify_one_rows={len(sample)} ok")
     # S >= L unscreened: the packed rows of valid signatures with S + L in
     # place of S.  [S + L]B = [S]B, so kernel and twin accept what the host
@@ -917,7 +936,8 @@ def report_ed25519(paths, worst, clock):
             bound_ms, by = verify_bound(rows, clock[0])
             log(f"path-wave {path} {name} rows={rows} valid_rows={int(packed[5].sum())} "
                 f"launches={count} ms={ms:.6f} plain_ms={plain_ms:.3f} "
-                f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f}")
+                f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f} "
+                f"cycles_per_mul={cycles_per_mul(ms, clock):.1f}")
             tot["ms"] += count * ms
             tot["plain_ms"] += count * plain_ms
             tot["bound_ms"] += count * bound_ms
@@ -999,6 +1019,10 @@ def main() -> int:
     log(f"rounds: the kernels' round chain alone (csrc/sha256_round.cuh, one warp, "
         f"no ring): {latency_probe.round_cycles(1):.3f} cycles per round, one message "
         f"per lane; {latency_probe.round_cycles(2):.3f} per step of two interleaved")
+    log("field: cycles per call of a chain of dependent Ed25519 field operations "
+        "(csrc/ed25519_field.cuh, one warp): " + " ".join(
+            f"{op.replace(' ', '_')}={latency_probe.field_cycles(op):.1f}"
+            for op in latency_probe.FIELD_OPS))
 
     worst = check_kernels(clock)
     worst["ed25519_verify"] = check_ed25519(clock)

@@ -1,5 +1,6 @@
 // Probes of the integer pipes that bound the SHA-256 kernels of
-// csrc/sha256.cu, each timed with clock64() on one warp:
+// csrc/sha256.cu and the Ed25519 kernel of csrc/ed25519.cu, each timed with
+// clock64() on one warp:
 //
 // - chain: a long chain SHF -> LOP3 -> add -> SHF -> ..., each instruction
 //   consuming the one before it (the add is an IADD3 or an IMAD, as the
@@ -10,7 +11,15 @@
 //   same across a warp would run on the uniform datapath instead).
 // - issue: one warp issuing independent instructions of one kind, or of two
 //   kinds in turn: cycles per warp instruction, which shows each kind's
-//   issue cost and which kinds share a pipe.
+//   issue cost and which kinds share a pipe.  The kinds include the wide
+//   multiplies of the Ed25519 field multiply (csrc/ed25519_field.cuh):
+//   IMAD.WIDE.U32 and IMAD.HI.U32.
+// - field: one warp running a chain of dependent Ed25519 field operations
+//   (csrc/ed25519_field.cuh), fe_mul, fe_sqr, fe_add or fe_sub, each call
+//   taking the last one's result: cycles per call, the latency of one
+//   operation in the verify kernel's chain of stages; and two independent
+//   fe_mul chains in turn, whose cycles per pair against one chain's per
+//   call show whether a multiply is bound by its own latency or by issue.
 // - rounds: one warp running the kernels' own round chain
 //   (csrc/sha256_round.cuh) on KW in shared memory, block after block,
 //   without the ring's barriers or producers: cycles per round of the
@@ -23,6 +32,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "ed25519_field.cuh"
 #include "sha256_round.cuh"
 
 namespace {
@@ -72,21 +84,32 @@ __device__ __forceinline__ uint32_t lop3(uint32_t x, uint32_t y, uint32_t c) {
 }
 
 // Ops: 0 SHF (funnel shift), 1 LOP3, 2 IADD3, 3 IMAD, then two kinds in
-// turn: 4 SHF and LOP3, 5 SHF and IMAD, 6 SHF and IADD3.  Each step reads
-// the neighbour accumulator of the step before, so no two steps fold into
-// one instruction.
+// turn: 4 SHF and LOP3, 5 SHF and IMAD, 6 SHF and IADD3; 7 IMAD.WIDE.U32,
+// 8 IMAD.HI.U32.  Each step reads the neighbour accumulator of the step
+// before, so no two steps fold into one instruction.  The wide multiplies
+// (IMAD.WIDE.U32: a 32 x 32 -> 64-bit product plus a 64-bit addend) work on
+// 64-bit accumulators.
 template <int kOp>
-__device__ __forceinline__ uint32_t step(uint32_t x, uint32_t y, uint32_t c, int i) {
-  const bool even = (i & 1) == 0;
-  if (kOp == 0 || (kOp >= 4 && even)) return __funnelshift_r(x, y, 7);
-  if (kOp == 1 || kOp == 4) return lop3(x, y, c);
-  if (kOp == 2 || kOp == 6) return x + y + c;
-  return x * kOne + y;  // 3 and 5
+using Acc = typename std::conditional<(kOp >= 7), uint64_t, uint32_t>::type;
+
+template <int kOp>
+__device__ __forceinline__ Acc<kOp> step(Acc<kOp> x, Acc<kOp> y, uint32_t c, int i) {
+  if constexpr (kOp == 7) {
+    return (uint64_t)(uint32_t)x * kOne + y;
+  } else if constexpr (kOp == 8) {
+    return __umulhi((uint32_t)x, c) + (uint32_t)y;
+  } else {
+    const bool even = (i & 1) == 0;
+    if (kOp == 0 || (kOp >= 4 && even)) return __funnelshift_r(x, y, 7);
+    if (kOp == 1 || kOp == 4) return lop3(x, y, c);
+    if (kOp == 2 || kOp == 6) return x + y + c;
+    return x * kOne + y;  // 3 and 5
+  }
 }
 
 template <int kOp>
 __global__ void issue_probe_kernel(unsigned long long* out, uint32_t seed, long long trips) {
-  uint32_t x[kLanes];
+  Acc<kOp> x[kLanes];
 #pragma unroll
   for (int i = 0; i < kLanes; ++i) x[i] = seed * (2 * i + 1) + threadIdx.x;
   const uint32_t c = (seed + threadIdx.x) ^ 0x9E3779B9u;
@@ -95,7 +118,7 @@ __global__ void issue_probe_kernel(unsigned long long* out, uint32_t seed, long 
   for (long long n = 0; n < trips; ++n) {
 #pragma unroll
     for (int j = 0; j < kUnroll / kLanes; ++j) {
-      uint32_t y[kLanes];
+      Acc<kOp> y[kLanes];
 #pragma unroll
       for (int i = 0; i < kLanes; ++i) y[i] = step<kOp>(x[i], x[(i + 1) % kLanes], c, i);
 #pragma unroll
@@ -104,11 +127,11 @@ __global__ void issue_probe_kernel(unsigned long long* out, uint32_t seed, long 
   }
   __syncwarp();
   const long long c1 = clock64();
-  uint32_t v = 0;
+  uint64_t v = 0;
 #pragma unroll
   for (int i = 0; i < kLanes; ++i) v ^= x[i];
   if (threadIdx.x == 0) out[0] = (unsigned long long)(c1 - c0);
-  atomicXor(reinterpret_cast<unsigned int*>(out + 1), v);
+  atomicXor(reinterpret_cast<unsigned int*>(out + 1), (uint32_t)(v ^ (v >> 32)));
 }
 
 // One warp, `blocks` blocks of 64 rounds on one shared KW[64][32], with the
@@ -155,6 +178,34 @@ __global__ void rounds_probe_kernel(unsigned long long* out, uint32_t seed, long
   atomicXor(reinterpret_cast<unsigned int*>(out + 1), x);
 }
 
+// A chain of `calls` dependent field operations of kind kOp (0 fe_mul, 1
+// fe_sqr, 2 fe_add, 3 fe_sub; 4 two independent fe_mul chains in turn, a
+// call being one multiply of each) on one warp.  out[0] cycles, out[1] a
+// limb of the result (keeps it live).
+template <int kOp>
+__global__ void field_probe_kernel(unsigned long long* out, uint32_t seed, long long calls) {
+  ed25519::Fe a, b, c;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    a.v[k] = seed * (2 * k + 1) + threadIdx.x;
+    b.v[k] = (seed ^ 0x9E3779B9u) * (k + 3) + threadIdx.x;
+    c.v[k] = a.v[k] ^ 0x5BD1E995u;
+  }
+  __syncwarp();
+  const long long c0 = clock64();
+  for (long long i = 0; i < calls; ++i) {
+    if (kOp == 0 || kOp == 4) a = ed25519::fe_mul(a, b);
+    if (kOp == 4) c = ed25519::fe_mul(c, b);
+    if (kOp == 1) a = ed25519::fe_sqr(a);
+    if (kOp == 2) a = ed25519::fe_add(a, b);
+    if (kOp == 3) a = ed25519::fe_sub(a, b);
+  }
+  __syncwarp();
+  const long long c1 = clock64();
+  if (threadIdx.x == 0) out[0] = (unsigned long long)(c1 - c0);
+  atomicXor(reinterpret_cast<unsigned int*>(out + 1), a.v[0] ^ a.v[7] ^ c.v[1]);
+}
+
 }  // namespace
 
 // Links of the chain that one chain launch runs per trip.
@@ -182,6 +233,8 @@ extern "C" int mirbft_issue_probe(void* out, long long op, long long seed, long 
     case 4: issue_probe_kernel<4><<<1, 32, 0, s>>>(o, (uint32_t)seed, trips); break;
     case 5: issue_probe_kernel<5><<<1, 32, 0, s>>>(o, (uint32_t)seed, trips); break;
     case 6: issue_probe_kernel<6><<<1, 32, 0, s>>>(o, (uint32_t)seed, trips); break;
+    case 7: issue_probe_kernel<7><<<1, 32, 0, s>>>(o, (uint32_t)seed, trips); break;
+    case 8: issue_probe_kernel<8><<<1, 32, 0, s>>>(o, (uint32_t)seed, trips); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -194,6 +247,21 @@ extern "C" int mirbft_rounds_probe(void* out, long long messages_per_lane, long 
   switch (messages_per_lane) {
     case 1: rounds_probe_kernel<1><<<1, 32, 0, s>>>(o, (uint32_t)seed, blocks); break;
     case 2: rounds_probe_kernel<2><<<1, 32, 0, s>>>(o, (uint32_t)seed, blocks); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mirbft_field_probe(void* out, long long op, long long seed, long long calls,
+                                  void* stream) {
+  auto* o = (unsigned long long*)out;
+  auto s = (cudaStream_t)stream;
+  switch (op) {
+    case 0: field_probe_kernel<0><<<1, 32, 0, s>>>(o, (uint32_t)seed, calls); break;
+    case 1: field_probe_kernel<1><<<1, 32, 0, s>>>(o, (uint32_t)seed, calls); break;
+    case 2: field_probe_kernel<2><<<1, 32, 0, s>>>(o, (uint32_t)seed, calls); break;
+    case 3: field_probe_kernel<3><<<1, 32, 0, s>>>(o, (uint32_t)seed, calls); break;
+    case 4: field_probe_kernel<4><<<1, 32, 0, s>>>(o, (uint32_t)seed, calls); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

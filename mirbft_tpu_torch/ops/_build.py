@@ -9,7 +9,9 @@ happen at first use (``library``) or all at once (``build_all``, one
 ``nvcc`` per source, started together), never at import: the CPU tests import
 every module on a machine with no CUDA toolkit.  ``ptxas -v`` output (each
 kernel's registers, shared memory and spills) is kept beside the library as
-``lib<name>-<key>.ptxas.txt``.
+``lib<name>-<key>.ptxas.txt``.  ``other_library`` builds another revision of
+a source the same way, so that the A/B scripts (``ab_sha256.py``,
+``ab_ed25519.py``) can time two revisions in one process.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_issue_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_issue_per_trip": ((), _I64),
         "mirbft_rounds_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
+        "mirbft_field_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
 }
@@ -78,37 +81,47 @@ def nvcc_path() -> str:
     return found
 
 
-def so_path(name: str) -> str:
-    """The library of ``csrc/<name>.cu``, keyed on its text, every header
-    under ``csrc/`` and the flags."""
+def _key(source: str) -> str:
+    """Hash of ``source``'s text, the headers beside it (``*.cuh``) and the
+    flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for path in [f"{name}.cu", *headers]:
-        with open(os.path.join(CSRC, path), "rb") as fh:
+    folder = os.path.dirname(source)
+    headers = sorted(f for f in os.listdir(folder) if f.endswith(".cuh"))
+    for path in [source, *(os.path.join(folder, h) for h in headers)]:
+        with open(path, "rb") as fh:
             digest.update(fh.read())
-    key = digest.hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{key[:16]}.so")
+    return digest.hexdigest()[:16]
 
 
-def _start(name: str) -> Optional[subprocess.Popen]:
+def _source(name: str, source: Optional[str]) -> str:
+    return os.path.join(CSRC, f"{name}.cu") if source is None else os.path.abspath(source)
+
+
+def so_path(name: str, source: Optional[str] = None) -> str:
+    """The library of ``csrc/<name>.cu`` (or of ``source``, another revision
+    of it), keyed on its text, every header beside it and the flags."""
+    return os.path.join(BUILD_DIR, f"lib{name}-{_key(_source(name, source))}.so")
+
+
+def _start(name: str, source: Optional[str] = None) -> Optional[subprocess.Popen]:
     """Start ``nvcc`` for one source unless its library is already built."""
-    target = so_path(name)
+    target = so_path(name, source)
     if os.path.exists(target):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name, source)]
     return subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
 
 
-def _finish(name: str, proc: subprocess.Popen) -> None:
+def _finish(name: str, proc: subprocess.Popen, source: Optional[str] = None) -> None:
     out, _ = proc.communicate(timeout=600)
-    target = so_path(name)
+    target = so_path(name, source)
     tmp = f"{target}.{os.getpid()}.tmp"
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+        raise RuntimeError(f"nvcc failed for {_source(name, source)}:\n{out}")
     with open(target[: -len(".so")] + ".ptxas.txt", "w") as fh:
         fh.write(out)
     os.replace(tmp, target)  # atomic: concurrent builders race benignly
@@ -130,12 +143,23 @@ def build_all() -> Dict[str, float]:
     return seconds
 
 
-def ptxas_report(name: str) -> str:
-    path = so_path(name)[: -len(".so")] + ".ptxas.txt"
+def ptxas_report(name: str, source: Optional[str] = None) -> str:
+    path = so_path(name, source)[: -len(".so")] + ".ptxas.txt"
     if not os.path.exists(path):
         return ""
     with open(path) as fh:
         return fh.read()
+
+
+def _build_and_load(name: str, source: Optional[str]) -> ctypes.CDLL:
+    proc = _start(name, source)
+    if proc is not None:
+        _finish(name, proc, source)
+    lib = ctypes.CDLL(so_path(name, source))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = restype
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -147,15 +171,17 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            proc = _start(name)
-            if proc is not None:
-                _finish(name, proc)
-            lib = ctypes.CDLL(so_path(name))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = restype
+            lib = _build_and_load(name, None)
             _libs[name] = lib
     return lib
+
+
+def other_library(name: str, source: str) -> ctypes.CDLL:
+    """``source``, another revision of ``csrc/<name>.cu`` that exports the
+    same launchers (for timing the two in turns), built with the same flags
+    beside the port's libraries and loaded with those launchers'
+    signatures.  Headers it includes are taken from beside it."""
+    return _build_and_load(name, source)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

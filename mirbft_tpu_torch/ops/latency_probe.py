@@ -1,6 +1,6 @@
 """Probes of the card's integer pipes: the dependent-issue latency (the
-factor of the SHA-256 kernels' chain floor), issue costs, and the round
-chain alone.
+factor of the SHA-256 kernels' chain floor), issue costs, the round chain
+alone, and the latency of one Ed25519 field operation.
 
 ``dependent_issue_latency`` launches the chain probe of
 ``csrc/latency_probe.cu`` (one warp, a long SHF -> LOP3 -> add chain timed
@@ -9,7 +9,8 @@ between one instruction of the chain and the next, with the SM clock the
 chain ran at.  A SHA-256 round's loop-carried chain is four such
 instructions, so a wave whose longest message has ``n`` live blocks takes at
 least ``n * 64 * 4 * latency`` cycles (``chip_smoke.py``'s ``chain_floor_ms``).
-``issue_cycles`` and ``round_cycles`` time the file's other two probes.
+``issue_cycles``, ``round_cycles`` and ``field_cycles`` time the file's
+other probes.
 They measure the card only: there is no CPU version.
 """
 
@@ -43,7 +44,8 @@ def dependent_issue_latency(trips: int = _TRIPS) -> Tuple[float, float]:
 
 
 # Instruction mixes of ``issue_cycles``.
-ISSUE_OPS = ("SHF", "LOP3", "IADD3", "IMAD", "SHF+LOP3", "SHF+IMAD", "SHF+IADD3")
+ISSUE_OPS = ("SHF", "LOP3", "IADD3", "IMAD", "SHF+LOP3", "SHF+IMAD", "SHF+IADD3",
+             "IMAD.WIDE", "IMAD.HI")
 
 
 def issue_cycles(op: str, trips: int = 1 << 14) -> float:
@@ -81,3 +83,26 @@ def round_cycles(messages_per_lane: int = 1, blocks: int = 1 << 12) -> float:
     )
     _build.check(lib, code, "rounds_probe")
     return int(out[0].item()) / (blocks * 64)
+
+
+# Field operations of ``field_cycles`` (csrc/ed25519_field.cuh); "fe_mul x2"
+# is two independent multiply chains in turn, a call being one of each.
+FIELD_OPS = ("fe_mul", "fe_sqr", "fe_add", "fe_sub", "fe_mul x2")
+
+
+def field_cycles(op: str, calls: int = 1 << 12) -> float:
+    """Cycles per call of the field operation ``op`` (one of ``FIELD_OPS``)
+    when one warp runs a chain of calls, each on the last one's result: the
+    latency of that operation in the verify kernel's chain of stages."""
+    import torch
+
+    from . import _build
+
+    lib = _build.library("latency_probe")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    code = lib.mirbft_field_probe(
+        out.data_ptr(), FIELD_OPS.index(op), 7, calls,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check(lib, code, "field_probe")
+    return int(out[0].item()) / calls

@@ -141,6 +141,8 @@ def test_pipe_probes():
     assert 0.3e9 <= clock_hz <= 3.0e9
     for op in latency_probe.ISSUE_OPS:
         assert 0.5 <= latency_probe.issue_cycles(op, trips=1 << 8) <= 32.0
+    for op in latency_probe.FIELD_OPS:
+        assert 1.0 <= latency_probe.field_cycles(op, calls=1 << 6) <= 100_000.0
     one = latency_probe.round_cycles(1, blocks=16)
     assert 8.0 <= one <= 200.0
     assert latency_probe.round_cycles(2, blocks=16) > one
@@ -187,7 +189,7 @@ def _signed_rows():
     return (pubs, msgs, sigs), arrays, expected
 
 
-@pytest.mark.parametrize("rows", [1, 33, 1024])
+@pytest.mark.parametrize("rows", [1, 7, 9, 16, 33, 1024, 4096])
 def test_ed25519_kernel_equals_twin_and_verify_one(rows):
     _, arrays, expected = _signed_rows()
     pick = np.arange(rows) % 64

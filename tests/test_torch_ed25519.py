@@ -7,9 +7,11 @@ program ``ed25519_verify_kernel(backend="vpu")`` on one packed wave of RFC
 8032 vectors, tampered rows and padding rows, the port's ``pack_inputs``
 against the reference's array for array, and ``Ed25519BatchVerifier`` on
 the CPU against ``verify_one``.  The CUDA kernel's source is also compiled
-for the host with the C++ compiler (its arithmetic is plain C++) and held to
-the same verdicts.  Verdicts and limbs are integers: every comparison is
-exact.
+for the host with the C++ compiler (its per-lane code is plain C++, run on
+each signature's four lanes in turn) and held to the same verdicts, also on
+rows where Z = 0 is reached and at row counts that fill part of a warp; its
+field operations are held to Python integers.  Verdicts and limbs are
+integers: every comparison is exact.
 """
 
 import ctypes
@@ -308,43 +310,190 @@ def test_dispatch_and_collect_on_cpu():
     assert snap["verify_device_dispatch_seconds_count"] == 1
 
 
-def test_kernel_source_compiled_for_the_host_gives_the_same_verdicts(wave, tmp_path):
-    """``csrc/ed25519.cu`` is plain C++ outside its kernel and launcher: built
-    for the host, its ``verify_row`` must give the JAX program's verdict on
-    every row, padding rows included."""
+HOST_WRAPPER = """
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#include "{source}"
+extern "C" void host_verify(const int32_t* ax, const int32_t* ay, const int32_t* r,
+                            const int32_t* s, const int32_t* h, long long rows, uint8_t* out) {{
+  ed25519::verify_host(ax, ay, r, s, h, rows, out);
+}}
+extern "C" void host_field(int op, const uint32_t* a, const uint32_t* b, uint32_t* out) {{
+  ed25519::Fe x, y, r;
+  for (int k = 0; k < 8; ++k) {{ x.v[k] = a[k]; y.v[k] = b[k]; }}
+  switch (op) {{
+    case 0: r = ed25519::fe_mul(x, y); break;
+    case 1: r = ed25519::fe_sqr(x); break;
+    case 2: r = ed25519::fe_add(x, y); break;
+    case 3: r = ed25519::fe_sub(x, y); break;
+    default: r = ed25519::fe_addsub(x, y, op == 5);
+  }}
+  for (int k = 0; k < 8; ++k) out[k] = r.v[k];
+}}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_build(tmp_path_factory):
+    """``csrc/ed25519.cu`` built for the host with the C++ compiler: outside
+    its kernel and launcher it is plain C++, and ``verify_host`` runs the
+    kernel's per-lane code on each group's four lanes in turn, with the
+    launch's row mapping (whole warps of eight groups)."""
     compiler = shutil.which("g++") or shutil.which("c++")
     assert compiler is not None, "a C++ compiler is needed (the port's _native build uses it)"
-    source = tmp_path / "host_verify.cpp"
-    source.write_text(
-        "#define __host__\n#define __device__\n#define __forceinline__ inline\n"
-        "#define __noinline__ __attribute__((noinline))\n"
-        f'#include "{os.path.join(ROOT, "mirbft_tpu_torch", "csrc", "ed25519.cu")}"\n'
-        'extern "C" void host_verify(const int32_t* ax, const int32_t* ay,'
-        " const int32_t* r, const int32_t* s, const int32_t* h, long long rows,"
-        " uint8_t* out) {\n  for (long long i = 0; i < rows; ++i)\n"
-        "    out[i] = ed25519::verify_row(ax + i * 32, ay + i * 32, r + i * 32,"
-        " s + i * 256, h + i * 256);\n}\n"
-    )
-    library = tmp_path / "host_verify.so"
+    folder = tmp_path_factory.mktemp("host_build")
+    source = folder / "host_verify.cpp"
+    source.write_text(HOST_WRAPPER.format(
+        source=os.path.join(ROOT, "mirbft_tpu_torch", "csrc", "ed25519.cu")))
+    library = folder / "host_verify.so"
     subprocess.run(
         [compiler, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(library), str(source)],
         check=True, capture_output=True, timeout=120,
     )
-    lib = ctypes.CDLL(str(library))
-    arrays, jax_ok, _, _, _ = wave
-    inputs = [np.ascontiguousarray(a, dtype=np.int32) for a in arrays[:5]]
-    out = np.zeros(len(jax_ok), dtype=np.uint8)
+    return ctypes.CDLL(str(library))
+
+
+def _host_verify(lib, inputs, rows):
+    inputs = [np.ascontiguousarray(a[:rows], dtype=np.int32) for a in inputs]
+    out = np.full(rows, 7, dtype=np.uint8)
     lib.host_verify(
         *(ctypes.c_void_p(a.ctypes.data) for a in inputs),
-        ctypes.c_longlong(len(out)),
+        ctypes.c_longlong(rows),
         ctypes.c_void_p(out.ctypes.data),
     )
-    assert (out.astype(bool) == jax_ok).all()
+    return out
+
+
+def test_kernel_source_compiled_for_the_host_gives_the_same_verdicts(wave, host_build):
+    """The host build's verdict is the JAX program's on every row, padding
+    rows included."""
+    arrays, jax_ok, _, _, _ = wave
+    inputs = [np.array(a, dtype=np.int32) for a in arrays[:5]]
+    out = _host_verify(host_build, inputs, len(jax_ok))
+    assert (out.astype(bool) == jax_ok).all() and set(out.tolist()) <= {0, 1}
     # An R byte outside [0, 255] fails its row, as the int32 compare does.
     inputs[2][0, 31] += 256
-    lib.host_verify(
-        *(ctypes.c_void_p(a.ctypes.data) for a in inputs),
-        ctypes.c_longlong(1),
-        ctypes.c_void_p(out.ctypes.data),
-    )
-    assert out[0] == 0
+    assert _host_verify(host_build, inputs, 1)[0] == 0
+
+
+P = port.P
+
+
+def _ladder_z(ax, ay, s_bits, h_bits):
+    """Z mod p of the kernel's ladder on one packed row, in Python integers:
+    the reference's formulas (dbl-2008-hwcd, add-2008-hwcd-3) on the table
+    identity, B, -A, B - A, picked by s + 2h in wrapping int32."""
+    x = int.from_bytes(bytes(int(v) & 0xFF for v in ax), "little")
+    y = int.from_bytes(bytes(int(v) & 0xFF for v in ay), "little")
+
+    def cached(pt):
+        px, py, pz, pt_ = pt
+        return ((py - px) % P, (py + px) % P, 2 * port.D * pt_ % P, 2 * pz % P)
+
+    def add(q, c):
+        qx, qy, qz, qt = q
+        ymx, ypx, t2d, z2 = c
+        a, b = (qy - qx) * ymx % P, (qy + qx) * ypx % P
+        cc, d = qt * t2d % P, qz * z2 % P
+        e, f, g, h = b - a, d - cc, d + cc, b + a
+        return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+    def double(q):
+        qx, qy, qz, _ = q
+        a, b, c = qx * qx % P, qy * qy % P, 2 * qz * qz % P
+        h = a + b
+        e, g = h - (qx + qy) ** 2, a - b
+        f = c + g
+        return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+    base = (port._BASE_X, port._BASE_Y, 1, port._BASE_X * port._BASE_Y % P)
+    m_a = (-x % P, y, 1, -x * y % P)
+    table = [(1, 1, 0, 2), cached(base), cached(m_a), cached(add(base, cached(m_a)))]
+    q = (0, 1, 1, 0)
+    for i in reversed(range(256)):
+        pick = (int(s_bits[i]) + 2 * int(h_bits[i])) & 0xFFFFFFFF
+        q = add(double(q), table[pick if pick < 4 else 0])
+    return q[2]
+
+
+@pytest.fixture(scope="module")
+def edge_wave():
+    """Eight off-curve rows packed by hand, with the JAX program's verdicts:
+    Z = 0 reached by the all-zero key (its doubles vanish) and by a key with
+    x = y (the last doubling of -A has X^2 = Y^2) with R = 0, which then
+    verifies, and with R != 0; random bytes with random bits; bit values
+    outside {0, 1}, including sums that wrap int32; and a padding row."""
+    rng = np.random.default_rng(20261017)
+    ax = rng.integers(0, 256, size=(8, 32)).astype(np.int32)
+    ay = rng.integers(0, 256, size=(8, 32)).astype(np.int32)
+    r = rng.integers(0, 256, size=(8, 32)).astype(np.int32)
+    s = rng.integers(0, 2, size=(8, 256)).astype(np.int32)
+    h = rng.integers(0, 2, size=(8, 256)).astype(np.int32)
+    ax[0:2] = ay[0:2] = r[0] = 0  # the all-zero key
+    h[0:2, 255] = 1
+    r[1, 0] = 1
+    ay[2:4] = ax[2:4]  # x = y: Q = mu (-A) before the last doubling
+    s[2:4] = h[2:4] = 0
+    h[2:4, 1] = 1
+    r[2] = 0
+    r[3] = 1
+    s[5, ::3], h[5, ::5] = 5, -1
+    s[6, :128], h[6, :128] = 2**31 - 1, 2**30  # s + 2h wraps to -1
+    s[6, 128:], h[6, 128:] = 1, -(2**31)  # 2h wraps to 0
+    ax[7] = ay[7] = r[7] = s[7] = h[7] = 0
+    arrays = (ax, ay, r, s, h)
+    jax_ok = np.asarray(ref.ed25519_verify_kernel(*arrays, backend="vpu"))
+    return arrays, jax_ok
+
+
+def test_host_build_on_rows_where_z_is_zero(edge_wave, host_build):
+    arrays, jax_ok = edge_wave
+    zero_z = [i for i in range(8) if _ladder_z(*(a[i] for a in (arrays[0], arrays[1], arrays[3],
+                                                                arrays[4]))) == 0]
+    assert zero_z == [0, 1, 2, 3]
+    # z^(p - 2) = 0: x = y = 0, which R = 0 encodes.
+    assert jax_ok[:4].tolist() == [True, False, True, False]
+    out = _host_verify(host_build, arrays, 8)
+    assert (out.astype(bool) == jax_ok).all() and set(out.tolist()) <= {0, 1}
+
+
+@pytest.mark.parametrize("rows", [7, 9])
+def test_host_build_fills_part_of_a_warp(wave, edge_wave, host_build, rows):
+    """Row counts that leave a warp's last groups without a row of their own
+    (the launch gives them the last row and stores nothing from them)."""
+    arrays = [np.concatenate([np.array(w, dtype=np.int32), e])
+              for w, e in zip(wave[0][:5], edge_wave[0])]
+    expected = np.concatenate([wave[1], edge_wave[1]])[:rows]
+    out = _host_verify(host_build, arrays, rows)
+    assert out.shape == (rows,) and (out.astype(bool) == expected).all()
+
+
+FIELD_EDGES = [0, 1, 2, 37, 38, P - 1, P, P + 1, 2 * P + 37, 2**255, 2**256 - 39,
+               2**256 - 38, 2**256 - 2, 2**256 - 1, 2**32 - 1, 2**224 * (2**32 - 1)]
+
+
+def _field_values():
+    rng = np.random.default_rng(4)
+    return FIELD_EDGES + [int.from_bytes(rng.bytes(32), "little") for _ in range(24)]
+
+
+@pytest.mark.parametrize("op", ["fe_mul", "fe_sqr", "fe_add", "fe_sub", "fe_addsub"])
+def test_host_field_op_equals_python_integers(host_build, op):
+    """The field operations of csrc/ed25519_field.cuh (their C++ forms, which
+    the host build runs) against Python integers mod p on edge values (0, 1,
+    p - 1, p, 2p + 37, 2^256 - 1 = all limbs 0xffffffff, ...) and random ones:
+    below 2^256 and congruent to the exact result."""
+    values = _field_values()
+    out = (ctypes.c_uint32 * 8)()
+    cases = {"fe_mul": [(0, lambda a, b: a * b)], "fe_sqr": [(1, lambda a, b: a * a)],
+             "fe_add": [(2, lambda a, b: a + b)], "fe_sub": [(3, lambda a, b: a - b)],
+             "fe_addsub": [(4, lambda a, b: a + b), (5, lambda a, b: a - b)]}[op]
+    for code, exact in cases:
+        for a in values:
+            for b in values:
+                la = (ctypes.c_uint32 * 8)(*((a >> (32 * k)) & 0xFFFFFFFF for k in range(8)))
+                lb = (ctypes.c_uint32 * 8)(*((b >> (32 * k)) & 0xFFFFFFFF for k in range(8)))
+                host_build.host_field(code, la, lb, out)
+                got = sum(int(w) << (32 * k) for k, w in enumerate(out))
+                assert got < 2**256 and (got - exact(a, b)) % P == 0, (op, code, a, b)

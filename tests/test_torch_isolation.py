@@ -1,6 +1,6 @@
-"""The port stands alone: ``mirbft_tpu_torch``, ``chip_smoke.py`` and
-``ab_sha256.py`` import neither ``jax`` nor anything of the JAX package
-``mirbft_tpu``.
+"""The port stands alone: ``mirbft_tpu_torch``, ``chip_smoke.py``,
+``ab_sha256.py`` and ``ab_ed25519.py`` import neither ``jax`` nor anything
+of the JAX package ``mirbft_tpu``.
 
 One subprocess makes both unimportable (``sys.modules[name] = None``),
 imports every module of the port and runs the 4-node recording with the
@@ -77,6 +77,7 @@ def _port_sources():
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "ab_sha256.py")
+    yield os.path.join(ROOT, "ab_ed25519.py")
 
 
 def test_sources_never_name_jax_or_the_reference_package():
