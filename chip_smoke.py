@@ -29,8 +29,24 @@ Phases (any failure raises, and the script exits nonzero without a result):
             verify_torch on the card and against verify_one on up to 64
             sampled rows a batch; S >= L unscreened (kernel and twin agree,
             and accept it, which is why the host screens it) and through
-            the verifier (rejected).
-4. paths    the main path: the c3 Recording (64 replicas, 64 clients x 100
+            the verifier (rejected).  Then the quorum kernel (gate and
+            accumulate) at the fused bench wave's stream (W = 4,096, D = 4,
+            N = 8, K = 8) and at N = 64 with K = 8 and 40, on random streams
+            with duplicate touches, slots and sources out of range both
+            ways, gated rows that match and do not, a chained prev_words
+            and group tags with -1: masks, counts, posts and newbits bit
+            for bit against its plain version on the card.
+4. fused    the fused wave at the bench's width (bench.py's
+            bench_fused_pipeline: 4,096 messages of 640 bytes, 4,096 slots,
+            4 digest slots, eight one-touch quorum waves): digests against
+            hashlib on every row, quorum state against the plain version
+            fed the same streams, fused_wave_4096_ms pipelined 20 deep; the
+            same wave with 1,024 signed rows riding it (a corrupt signer's
+            among them), verdicts against verify_torch on the card and
+            verify_one on 64 sampled rows; and a two-wave chain (the second
+            gated on the first's digests), a partial collect and a full
+            one, against host_fused_reference, every lease released.
+5. paths    the main path: the c3 Recording (64 replicas, 64 clients x 100
             requests, batch 100) with the device hash plane on kernel="auto",
             held to the port's host-path run of the same Spec (steps and
             per-node checkpoints), all 6,400 requests committed on every node,
@@ -45,10 +61,16 @@ Phases (any failure raises, and the script exits nonzero without a result):
             (4 replicas, 4 x 20 signed requests, client 3 a corrupt signer),
             whose 60 honest requests commit on every node and client 3's on
             none, with at least one corrupt row rejected by the kernel itself.
-            Every kernel's launch count is set to 0 just before each device
+            Then the same three through the fused pipeline (fused=True):
+            c3_fused, c2_signed_fused (with hash_floor 1, so that c2's 32
+            unique digests reach the card at all) and
+            4n_signed_corrupt_fused, each device run held to the host-path
+            run of its unfused twin, with fused waves launched and the
+            signatures that rode fused waves and the auth plane's own waves
+            counted.  Every kernel's launch count is set to 0 just before each device
             run and read just after; each run must launch exactly the kernels
             its waves resolve to.
-5. report   the kernels' times at the shapes those runs launched, one JSON
+6. report   the kernels' times at the shapes those runs launched, one JSON
             line {"kernels": [...]}, the nvidia-smi line, and last the JSON
             device line.
 
@@ -63,6 +85,16 @@ The bound counts the work, not how the kernel spreads it.  Beside it,
 cycles_per_mul is the launch's time at the sampled SM clock over the 1,295
 field multiplies one lane of csrc/ed25519.cu runs in series (four lanes
 share a signature's multiplies: one of each formula stage).
+
+Quorum bound: the bytes one launch must move (each touch's slot, digest,
+valid, gate row, group, post and newbit; a gated touch's 8 claimed words,
+its row's 8 digest words and the row's group; each touched mask word and
+count read once and, where new, written once; the sources) at the HBM rate,
+or its integer operations (~40 a touch) at the INT32 rate, the larger.
+Beside it, dependent_launches_ms: the same N waves on the same inputs
+launched one wave at a time, one launch after another on the stream (CUDA
+events), which is what one launch for the whole stream saves; the split
+run must leave the same state, posts and newbits as the one launch.
 
 SHA-256 bounds: the operations of one live 64-byte block are counted as sm_90
 instructions at their fan-in (a rotate is one SHF, any two- or three-input
@@ -126,6 +158,8 @@ C3_PLANE = dict(device=True, hash_wave=64, hash_floor=8, defer_unready=False)
 # Run orders (drive_paths): H host path, D device run, P device run traced.
 C3_ORDER = "HDDHP"
 C2_ORDER = "HDDHP"
+C3_FUSED_ORDER = "DD"
+C2_FUSED_ORDER = "DD"
 SMALL = dict(node_count=4, client_count=4, reqs_per_client=20, batch_size=5)
 SMALL_PLANE = dict(device=True, hash_wave=4, hash_floor=1, defer_unready=False)
 # The signed paths: bench.py's c2py_16n_signed shape (BASELINE config 2) with
@@ -154,6 +188,17 @@ VERIFY_BYTES_PER_ROW = 3 * 32 * 4 + 2 * 256 * 4 + 1
 # signature: 5 to set up the table, 4 a ladder step (one of each formula
 # stage), the inversion's 265 and one for x or y.
 VERIFY_SERIAL_MULS = 5 + 256 * 4 + 265 + 1
+# The quorum kernel's streams (W, D, N, K): the fused bench wave's (4,096
+# slots, 4 digest slots, eight one-touch waves padded to K = 8) and longer
+# ones, K = 40 past a warp; its integer operations a touch (the gate's 8
+# compares, the indices, the word, the atomics), for the bound.
+QUORUM_SHAPES = ((4096, 4, 8, 8), (4096, 4, 64, 8), (4096, 4, 64, 40))
+QUORUM_OPS_PER_TOUCH = 40
+# The fused bench wave (bench.py bench_fused_pipeline) and the signed rows
+# of c2's verify wave that ride it in the signed case.
+FUSED_BATCH, FUSED_MSG_LEN, FUSED_DEPTH = 4096, 640, 20
+FUSED_SLOTS, FUSED_DIGEST_SLOTS = 4096, 4
+FUSED_SIGNED = 1024
 
 
 def log(*args):
@@ -529,6 +574,392 @@ def check_ed25519(clock):
     return worst
 
 
+def gated_stream(rng, w, d, n, k, p=8, b=64):
+    """A random quorum stream with its gate tables, as host arrays [masks,
+    counts, sources, touches, valid, prev_words, digests, digest_rows,
+    claimed, row_groups, touch_groups]: a duplicate touch in every wave,
+    slots and digest slots out of range both ways (past -size too),
+    sources >= 256 and < 0, gated rows of both tables, past them and -1,
+    claims that match and do not, a chained prev_words of ``p`` rows and
+    group tags with -1.  The card and CPU tests of the quorum kernel draw
+    their streams here too."""
+    import numpy as np
+
+    def index(size, shape):
+        i = rng.integers(0, size, size=shape)
+        edge = rng.random(shape) < 0.15
+        i[edge] = rng.choice([-size - 2, -size - 1, -2, -1, size, size + 1],
+                             size=int(edge.sum()))
+        return i
+
+    prev = rng.integers(0, 2**32, size=(p, 8), dtype=np.uint32)
+    digests = rng.integers(0, 2**32, size=(b, 8), dtype=np.uint32)
+    row_groups = rng.integers(-1, 2, size=p + b).astype(np.int32)
+    sources = rng.integers(-40, 300, size=n).astype(np.int32)
+    touches = np.stack([index(w, (n, k)), index(d, (n, k))], axis=-1).astype(np.int32)
+    if k > 1:
+        touches[:, 1] = touches[:, 0]
+    valid = rng.random((n, k)) < 0.8
+    digest_rows = rng.integers(-2, p + b + 3, size=(n, k)).astype(np.int32)
+    rows = np.clip(digest_rows, 0, p + b - 1)
+    claimed = np.concatenate([prev, digests])[rows]
+    spoil_n, spoil_k = np.nonzero(rng.random((n, k)) < 0.3)
+    claimed[spoil_n, spoil_k, rng.integers(0, 8, size=spoil_n.size)] ^= 1
+    touch_groups = np.where(rng.random((n, k)) < 0.8, row_groups[rows],
+                            rng.integers(-1, 2, size=(n, k))).astype(np.int32)
+    masks = rng.integers(0, 2**32, size=(w, d, 8), dtype=np.uint32)
+    counts = rng.integers(0, 200, size=(w, d)).astype(np.int32)
+    return [masks, counts, sources, touches, valid, prev, digests, digest_rows, claimed,
+            row_groups, touch_groups]
+
+
+def as_tensors(arrays, device):
+    """Host arrays -> tensors on ``device`` (uint32 as int32 bits)."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int32) if a.dtype == np.uint32
+                             else np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+def quorum_bound(tensors):
+    """(bound_ms, bound_by) of one quorum launch on these inputs: the bytes
+    its data needs at the HBM rate, or ~QUORUM_OPS_PER_TOUCH integer
+    operations a touch at the INT32 rate."""
+    import numpy as np
+
+    masks, _, sources, touches, valid, _, _, rows, *_ = [t.cpu().numpy() for t in tensors]
+    n, k = valid.shape
+    w, d = masks.shape[:2]
+
+    def clamp(i, size):
+        return np.clip(np.where(i < 0, i + size, i), 0, size - 1)
+
+    wr, dr = clamp(touches[..., 0], w), clamp(touches[..., 1], d)
+    word = np.broadcast_to(clamp(sources.astype(np.int64) >> 5, 8)[:, None], (n, k))
+    pairs = len(np.unique(wr * d + dr))
+    words = len(np.unique((wr * d + dr) * 8 + word))
+    gated = int((valid & (rows >= 0)).sum())
+    moved = n * 4 + n * k * (8 + 1 + 4 + 4 + 4 + 1) + gated * (32 + 32 + 4) + (words + pairs) * 8
+    bytes_s = moved / HBM_BYTES_PER_S
+    ops_s = n * k * QUORUM_OPS_PER_TOUCH / INT32_OPS_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def run_quorum(tensors):
+    """One kernel launch on fresh copies of the state; returns (masks,
+    counts, posts, newbits)."""
+    from mirbft_tpu_torch.ops import quorum
+
+    masks, counts = tensors[0].clone(), tensors[1].clone()
+    posts, newbits = quorum.quorum_accumulate(masks, counts, *tensors[2:5], tuple(tensors[5:]))
+    return masks, counts, posts, newbits
+
+
+def split_waves(tensors):
+    """The stream's N waves as N one-wave launch inputs (sources, touches,
+    valid, gate) over the same tables."""
+    _, _, sources, touches, valid, prev, digests, rows, claimed, row_groups, groups = tensors
+    return [(sources[i:i + 1], touches[i:i + 1], valid[i:i + 1],
+             (prev, digests, rows[i:i + 1], claimed[i:i + 1], row_groups, groups[i:i + 1]))
+            for i in range(valid.shape[0])]
+
+
+def launch_split(masks, counts, waves):
+    """One launch a wave, in order, on the stream; returns (posts, newbits)
+    of each."""
+    from mirbft_tpu_torch.ops import quorum
+
+    return [quorum.quorum_accumulate(masks, counts, *wave) for wave in waves]
+
+
+def time_quorum(tensors):
+    """(ms, plain_ms, bound_ms, bound_by, dependent_launches_ms) of the
+    quorum kernel on these inputs (the state is updated in place as on a
+    path, so every timed launch does a wave's work).  The stream is first
+    run split into one launch a wave, which must equal the one launch."""
+    import torch
+
+    from mirbft_tpu_torch.ops import quorum
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+
+    waves = split_waves(tensors)
+    masks, counts = tensors[0].clone(), tensors[1].clone()
+    outs = launch_split(masks, counts, waves)
+    split = (masks, counts, torch.cat([p for p, _ in outs]), torch.cat([b for _, b in outs]))
+    if not all(torch.equal(a, b) for a, b in zip(split, run_quorum(tensors))):
+        raise AssertionError(f"quorum N={len(waves)}: one launch a wave != one launch")
+    ms = time_cuda(lambda: quorum.quorum_accumulate(masks, counts, *tensors[2:5],
+                                                    tuple(tensors[5:]))) * 1e3
+    # Few enough repeats that the host enqueues every launch while time_cuda's
+    # spin kernel holds the stream (the wrapper's checks take tens of
+    # microseconds of host time a launch).
+    dependent_ms = time_cuda(lambda: launch_split(masks, counts, waves),
+                             repeats=max(1, min(20, 128 // len(waves)))) * 1e3
+    plain_ms = time_plain(lambda: quorum.quorum_accumulate_torch(*tensors[:5],
+                                                                 tuple(tensors[5:]))) * 1e3
+    bound_ms, by = quorum_bound(tensors)
+    return ms, plain_ms, bound_ms, by, dependent_ms
+
+
+def check_quorum():
+    """Phase 3, quorum: the gate and accumulate kernel at each stream shape
+    against its plain version on the card (exact); returns the worst
+    error."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops.quorum import quorum_accumulate_torch
+
+    rng = np.random.default_rng(SEED + 2)
+    worst = 0
+    for w, d, n, k in QUORUM_SHAPES:
+        tensors = as_tensors(gated_stream(rng, w, d, n, k), DEVICE)
+        got = run_quorum(tensors)
+        torch_sync()
+        want = quorum_accumulate_torch(*tensors[:5], tuple(tensors[5:]))
+        torch_sync()
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(got, want))
+        worst = max(worst, err)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"quorum W={w} D={d} N={n} K={k}: kernel != plain")
+        new = int(want[3].sum())
+        if not 0 < new < want[3].numel():
+            raise AssertionError(f"quorum N={n} K={k}: the stream set no or every newbit")
+        ms, plain_ms, bound_ms, by, dep_ms = time_quorum(tensors)
+        log(f"kernel quorum_accumulate W={w} D={d} N={n} K={k} newbits={new} "
+            f"gated={int((tensors[4] & (tensors[7] >= 0)).sum())} ms={ms:.6f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} ({by}) "
+            f"dependent_launches_ms={dep_ms:.6f} (one launch a wave == one launch) "
+            f"max_abs_err={err} ok")
+    return worst
+
+
+def signed_rows(count, corrupt_signer=3, signers=16):
+    """``count`` rows signed by ``signers`` keys (keypair_from_seed), the
+    corrupt signer's with R tampered, as c2's clients sign; returns (pubs,
+    msgs, sigs, corrupt row indices)."""
+    from mirbft_tpu_torch.ops import ed25519 as e
+
+    keys = [e.keypair_from_seed(bytes([i + 1]) * 32) for i in range(signers)]
+    pubs, msgs, sigs, corrupt = [], [], [], []
+    for i in range(count):
+        pub, sign = keys[i % signers]
+        msg = b"fused-signed-%d" % i
+        sig = sign(msg)
+        if i % signers == corrupt_signer:
+            sig = sig[:5] + bytes([sig[5] ^ 0x10]) + sig[6:]
+            corrupt.append(i)
+        pubs.append(pub)
+        msgs.append(msg)
+        sigs.append(sig)
+    return pubs, msgs, sigs, corrupt
+
+
+def check_fused():
+    """Phase 4: the fused wave at the bench's width, unsigned and signed,
+    against hashlib, verify_torch, verify_one and the quorum's plain
+    version; its time per dispatch pipelined; and a chained pair of waves
+    against host_fused_reference."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline, host_fused_reference
+    from mirbft_tpu_torch.ops.quorum import accumulate_torch
+
+    rng = np.random.default_rng(SEED + 3)
+    msg_sets = [[rng.integers(0, 256, size=FUSED_MSG_LEN, dtype=np.uint8).tobytes()
+                 for _ in range(FUSED_BATCH)] for _ in range(2)]
+    expect = [[hashlib.sha256(m).digest() for m in ms] for ms in msg_sets]
+    pipe = FusedCryptoPipeline(n_slots=FUSED_SLOTS, n_digest_slots=FUSED_DIGEST_SLOTS,
+                               device=DEVICE)
+    quorum = [(s, [(s % FUSED_BATCH, 0, None, None)]) for s in range(8)]
+    stream = [torch.from_numpy(a) for a in pipe._pack_quorum(quorum, FUSED_BATCH, 1)[:3]]
+    twin = [torch.zeros(tuple(pipe.masks.shape), dtype=torch.int32),
+            torch.zeros(tuple(pipe.counts.shape), dtype=torch.int32)]
+
+    def twin_wave():
+        masks, counts, posts, newbits = accumulate_torch(*twin, *stream)
+        twin[:] = [masks, counts]
+        return posts.numpy(), newbits.numpy()
+
+    def same_state(what):
+        masks, counts = pipe.quorum_state()
+        if not ((masks == twin[0].numpy().view(np.uint32)).all()
+                and (counts == twin[1].numpy()).all()):
+            raise AssertionError(f"fused {what}: quorum state != the plain version")
+
+    def timed(kwargs_of):
+        torch_sync()
+        start = time.perf_counter()
+        handles = [pipe.dispatch_wave(msg_sets[i % 2], quorum=quorum, **kwargs_of(i))
+                   for i in range(FUSED_DEPTH)]
+        pipe.collect(handles[-1])
+        piped = (time.perf_counter() - start) / FUSED_DEPTH
+        for h in handles:
+            pipe._release_lease(h)
+        for _ in handles:
+            twin_wave()
+        return piped
+
+    handle = pipe.dispatch_wave(msg_sets[0], quorum=quorum)
+    res = pipe.collect(handle)
+    posts, newbits = twin_wave()
+    if res.digests != expect[0]:
+        raise AssertionError("fused wave: digests != hashlib")
+    if not ((res.posts == posts).all() and (res.newbits == newbits).all()):
+        raise AssertionError("fused wave: posts or newbits != the plain version")
+    same_state("wave")
+    layout = handle.layout
+    piped = timed(lambda i: {})
+    same_state("pipelined waves")
+
+    pubs, vmsgs, sigs, corrupt = signed_rows(FUSED_SIGNED)
+    signed = (pubs, vmsgs, sigs)
+    handle = pipe.dispatch_wave(msg_sets[1], signed=signed, quorum=quorum)
+    res = pipe.collect(handle)
+    twin_wave()
+    if res.digests != expect[1]:
+        raise AssertionError("signed fused wave: digests != hashlib")
+    arrays = pipe.verifier.pack_inputs(pubs, vmsgs, sigs)
+    plain = e.verify_torch(*(torch.from_numpy(a).to(DEVICE) for a in arrays[:5]))
+    want = plain.cpu().numpy()[:FUSED_SIGNED] & arrays[5][:FUSED_SIGNED]
+    if not (res.verdicts == want).all():
+        raise AssertionError("signed fused wave: verdicts != verify_torch")
+    sample = rng.choice(FUSED_SIGNED, size=VERIFY_SAMPLE, replace=False)
+    sample[:2] = corrupt[:2]
+    for i in sample:
+        if res.verdicts[i] != e.verify_one(pubs[i], vmsgs[i], sigs[i]):
+            raise AssertionError(f"signed fused wave: row {i} != verify_one")
+    ok = handle.ok.cpu().numpy()[:FUSED_SIGNED]
+    rejected = int((arrays[5][corrupt] & ~ok[corrupt]).sum())
+    if rejected < 1:
+        raise AssertionError("signed fused wave: the kernel rejected no corrupt row")
+    same_state("signed wave")
+    piped_signed = timed(lambda i: {"signed": signed})
+    same_state("pipelined signed waves")
+
+    # A chain: wave 2 (a batch-layout wave of 100) gates on wave 1's digests
+    # and its own; a partial collect, then full ones.
+    chain_pipe = FusedCryptoPipeline(n_slots=64, n_digest_slots=2, device=DEVICE)
+    pool = chain_pipe.hasher._pool
+    msgs2 = msg_sets[1][:100]
+    q1 = [(s, [(s, 0, s, expect[0][s]), (s + 1, 1, s, expect[0][s + 1])]) for s in range(6)]
+    h1 = chain_pipe.dispatch_wave(msg_sets[0], quorum=q1)
+    far = FUSED_BATCH - 96  # rows near the end of wave 1
+    q2 = [(40 + s, [(s, 0, far + s, expect[0][far + s]),
+                    (s, 1, h1.rows + s, expect[1][s] if s % 2 else expect[0][s])])
+          for s in range(5)]
+    h2 = chain_pipe.dispatch_wave(msgs2, quorum=q2, chain=h1)
+    part = chain_pipe.collect_ready(h2, [99, 0, 7])
+    full2 = chain_pipe.collect(h2)
+    full1 = chain_pipe.collect(h1)
+    zeros = (np.zeros((64, 2, 8), np.uint32), np.zeros((64, 2), np.int32))
+    rd1, _, rm1, rc1, rp1, rn1 = host_fused_reference(msg_sets[0], None, q1, *zeros)
+    rd2, _, rm2, rc2, rp2, rn2 = host_fused_reference(
+        msgs2, None, q2, rm1, rc1, prev_digests=rd1, prev_rows=h1.rows)
+    masks, counts = chain_pipe.quorum_state()
+    checks = (
+        full1.digests == rd1 and full2.digests == rd2,
+        part.digests == [rd2[99], rd2[0], rd2[7]],
+        (full1.posts[:6] == rp1[:6]).all() and (full1.newbits[:6] == rn1[:6]).all(),
+        (part.posts[:5] == rp2[:5]).all() and (part.newbits[:5] == rn2[:5]).all(),
+        (masks == rm2).all() and (counts == rc2).all(),
+        h1.lease is None and h2.lease is None and sum(map(len, pool._free.values())) == 2,
+    )
+    if not all(checks):
+        raise AssertionError(f"fused chain != host_fused_reference: {checks}")
+    log(f"fused_wave messages={FUSED_BATCH} msg_len={FUSED_MSG_LEN} layout={layout} "
+        f"rows={handle.rows} quorum_waves={len(quorum)} depth={FUSED_DEPTH} "
+        f"fused_wave_4096_ms={piped * 1e3:.6f} signed_rows={FUSED_SIGNED} "
+        f"fused_wave_4096_signed_ms={piped_signed * 1e3:.6f} "
+        f"corrupt_rows_rejected_by_the_kernel={rejected} of {len(corrupt)} "
+        f"verify_one_rows={len(sample)} chain: wave 2 layout={h2.layout} gated on "
+        f"wave 1 rows, collect_ready + collect == host_fused_reference, leases released | "
+        f"{nvidia_smi_line()}")
+    return {"fused_wave_4096_ms": piped * 1e3, "fused_wave_4096_signed_ms": piped_signed * 1e3}
+
+
+class FusedLog:
+    """Observes the fused pipeline's waves by wrapping
+    ``FusedCryptoPipeline``: each dispatch's packed shape (the latest
+    inputs of each shape) and signed rows, each signed wave's verdicts (its
+    validity mask and the kernel's, at its first collect), and the quorum
+    launches' inputs by shape (cloned before the launch, through the name
+    the pipeline calls, with their valid touches).  Launches are counted
+    only by the kernel wrappers."""
+
+    def __init__(self):
+        from mirbft_tpu_torch.ops import fused, quorum
+
+        self.mod = quorum
+        cls = fused.FusedCryptoPipeline
+        self.cls = cls
+        self.real = (cls.dispatch_wave, cls.collect, cls.collect_ready,
+                     quorum.quorum_accumulate)
+        self.waves = {}  # (layout, blocks shape) -> (dispatches, (blocks, n_blocks))
+        self.signed = []  # signed rows per dispatch
+        self.verdicts = []  # (valid, kernel verdict) per signed wave
+        self.quorum = {}  # (W, D, N, K, P, B) -> (launches, inputs)
+        self.touches = []  # valid touches per quorum launch (on the device until read)
+
+    def valid_touches(self):
+        return sum(int(t) for t in self.touches)
+
+    def __enter__(self):
+        dispatch, collect, collect_ready, accumulate = self.real
+        log_ = self
+        pending = {}  # id(handle) -> handle, signed waves not yet harvested
+
+        def wrapped_dispatch(pipe, messages, signed=None, quorum=None, block_bucket=None,
+                             batch_bucket=None, packed=None, chain=None, groups=None):
+            if packed is None:
+                packed = pipe.hasher.pack(messages, block_bucket, batch_bucket)
+            key = (packed.layout, packed.blocks.shape)
+            count, _ = log_.waves.get(key, (0, None))
+            log_.waves[key] = (count + 1, (packed.blocks.copy(), packed.n_blocks.copy()))
+            log_.signed.append(len(signed[0]) if signed else 0)
+            handle = dispatch(pipe, messages, signed, quorum, block_bucket, batch_bucket,
+                              packed, chain, groups)
+            if handle.ok is not None:
+                pending[id(handle)] = handle
+            return handle
+
+        def harvest(handle):
+            if pending.pop(id(handle), None) is not None:
+                count = handle.verify_count
+                log_.verdicts.append((handle.valid[:count].copy(),
+                                      handle.ok.cpu().numpy()[:count]))
+
+        def wrapped_collect(pipe, handle):
+            harvest(handle)
+            return collect(pipe, handle)
+
+        def wrapped_collect_ready(pipe, handle, rows):
+            harvest(handle)
+            return collect_ready(pipe, handle, rows)
+
+        def wrapped_accumulate(masks, counts, sources, touches, valid, gate):
+            key = (*masks.shape[:2], *valid.shape, gate[0].shape[0], gate[1].shape[0])
+            count, _ = log_.quorum.get(key, (0, None))
+            inputs = tuple(t.clone() for t in (masks, counts, sources, touches, valid, *gate))
+            log_.quorum[key] = (count + 1, inputs)
+            log_.touches.append(valid.sum())
+            return accumulate(masks, counts, sources, touches, valid, gate)
+
+        self.cls.dispatch_wave = wrapped_dispatch
+        self.cls.collect = wrapped_collect
+        self.cls.collect_ready = wrapped_collect_ready
+        self.mod.quorum_accumulate = wrapped_accumulate
+        return self
+
+    def __exit__(self, *exc):
+        (self.cls.dispatch_wave, self.cls.collect, self.cls.collect_ready,
+         self.mod.quorum_accumulate) = self.real
+
+
 class WaveLog:
     """Observes the hash plane's waves (shape, count, the latest inputs of
     each shape) by wrapping ``TorchHasher.dispatch_packed``; launches are
@@ -638,8 +1069,11 @@ def counted_kernels():
     """name -> wrapper of every kernel whose launches the paths count."""
     from mirbft_tpu_torch.ops import ed25519
 
+    from mirbft_tpu_torch.ops import quorum
+
     kernels = {name: entry[0] for name, entry in kernel_table().items()}
     kernels["ed25519_verify"] = ed25519.ed25519_verify_kernel
+    kernels["quorum_accumulate"] = quorum.quorum_accumulate
     return kernels
 
 
@@ -707,42 +1141,57 @@ def corrupt_signer(recorder):
 
 
 def drive_paths():
-    """Phase 4: the main path (c3, kernel auto), the signed c2 path, the two
-    pinned-kernel 4-node paths and the 4-node signed path with a corrupt
-    signer; returns per-path launches, hash waves and verify waves.
+    """Phase 5: the main path (c3, kernel auto), the signed c2 path, the two
+    pinned-kernel 4-node paths, the 4-node signed path with a corrupt
+    signer, and c3, c2 and the corrupt-signer path through the fused
+    pipeline; returns per-path launches, hash waves, verify waves and
+    quorum launches.
 
     Each path's runs go in the order of its ``order`` string: H a host-path
     run, D a device run, P a device run traced by torch.profiler.  Every run
-    is held to the first host-path run."""
-    import numpy as np
-
+    is held to the first host-path run of its path, or, for a fused path
+    (which runs D only: the host path ignores ``fused``), of its unfused
+    twin."""
     from mirbft_tpu_torch.testengine import CryptoConfig, Spec
 
     paths = [
-        # name, Spec shape, plane, pinned hash kernel, order, Spec tweak
-        ("c3_auto", C3, dict(C3_PLANE, kernel="auto"), None, C3_ORDER, None),
-        ("c2_signed", C2, dict(C2_PLANE, kernel="auto"), None, C2_ORDER, None),
-        ("4n_lanes", SMALL, dict(SMALL_PLANE, kernel="lanes"), "sha256_lanes", "HD", None),
-        ("4n_scan", SMALL, dict(SMALL_PLANE, kernel="scan"), "sha256_batch", "HD", None),
+        # name, Spec shape, plane, pinned hash kernel, order, Spec tweak,
+        # unfused twin
+        ("c3_auto", C3, dict(C3_PLANE, kernel="auto"), None, C3_ORDER, None, None),
+        ("c2_signed", C2, dict(C2_PLANE, kernel="auto"), None, C2_ORDER, None, None),
+        ("4n_lanes", SMALL, dict(SMALL_PLANE, kernel="lanes"), "sha256_lanes", "HD", None,
+         None),
+        ("4n_scan", SMALL, dict(SMALL_PLANE, kernel="scan"), "sha256_batch", "HD", None, None),
         ("4n_signed_corrupt", SMALL_SIGNED, dict(SMALL_SIGNED_PLANE, kernel="auto"), None,
-         "HD", corrupt_signer),
+         "HD", corrupt_signer, None),
+        ("c3_fused", C3, dict(C3_PLANE, kernel="auto", fused=True), None, C3_FUSED_ORDER,
+         None, "c3_auto"),
+        # With c2's hash_floor of 8 its 32 unique digests never reach the
+        # card, and a fused plane would launch nothing: floor 1 sends them.
+        ("c2_signed_fused", C2, dict(C2_PLANE, kernel="auto", fused=True, hash_floor=1),
+         None, C2_FUSED_ORDER, None, "c2_signed"),
+        ("4n_signed_corrupt_fused", SMALL_SIGNED,
+         dict(SMALL_SIGNED_PLANE, kernel="auto", fused=True), None, "D", corrupt_signer,
+         "4n_signed_corrupt"),
     ]
     out_dir = os.path.join(HERE, "chiprun_out")
-    results = {}
-    for name, shape, crypto, pinned, order, tweak in paths:
+    results, host_fps, path_walls = {}, {}, {}
+    for name, shape, crypto, pinned, order, tweak, twin in paths:
         signed = shape.get("signed_requests", False)
+        fused = bool(crypto.get("fused"))
         corrupt = CORRUPT_CLIENT if tweak is corrupt_signer else None
         target = {c: 0 if c == corrupt else shape["reqs_per_client"]
                   for c in range(shape["client_count"])}
         unique = sum(target.values())
-        host_fp, walls, path_launches, waves, verify_inputs = (
-            None, {"H": [], "D": []}, None, None, None)
+        host_fp = host_fps.get(twin)
+        walls, path_launches, waves, verify_inputs, quorum_inputs = (
+            {"H": [], "D": []}, None, None, None, None)
         for run, kind in enumerate(order):
             if kind == "H":
                 with SignClock() as signing:
                     _, steps, finals, wall, snap = run_spec(Spec(**shape, tweak_recorder=tweak))
                 if host_fp is None:
-                    host_fp = (steps, finals)
+                    host_fp = host_fps[name] = (steps, finals)
                 elif (steps, finals) != host_fp:
                     raise AssertionError(f"{name}: host-path runs disagree")
                 walls["H"].append(wall)
@@ -755,7 +1204,8 @@ def drive_paths():
                 os.makedirs(out_dir, exist_ok=True)
                 profile = os.path.join(out_dir, f"trace_{name}.json")
             reset_launches()
-            with WaveLog() as run_waves, VerifyLog() as run_verify, SignClock() as signing:
+            with WaveLog() as run_waves, VerifyLog() as run_verify, FusedLog() as run_fused, \
+                    SignClock() as signing:
                 recording, steps, finals, wall, snap = run_spec(
                     Spec(**shape, tweak_recorder=tweak,
                          crypto=CryptoConfig(**crypto, torch_device=DEVICE)),
@@ -770,23 +1220,34 @@ def drive_paths():
                     raise AssertionError(f"{name}: node {node.id} committed {got}, not {target}")
             dispatches = int(snap.get("device_hash_dispatches", 0))
             verifies = int(snap.get("device_verify_dispatches", 0))
+            fused_dispatches = int(snap.get("fused_wave_dispatches", 0))
             if signed and (verifies <= 0 or launches["ed25519_verify"] <= 0):
                 raise AssertionError(f"{name}: no verify wave launched the kernel")
             if not signed and dispatches <= 0:
                 raise AssertionError(f"{name}: no device hash wave launched")
+            if fused and (fused_dispatches <= 0
+                          or launches["quorum_accumulate"] != fused_dispatches):
+                raise AssertionError(
+                    f"{name}: {fused_dispatches} fused waves, "
+                    f"{launches['quorum_accumulate']} quorum launches")
             # The kernels this run resolved its waves to must each have
             # launched, and no other kernel may have.
-            resolved = {f"sha256_{layout}" for (layout, _) in run_waves.waves}
-            if run_verify.waves:
+            all_waves = dict(run_waves.waves)
+            for key, (count, inputs) in run_fused.waves.items():
+                all_waves[key] = (all_waves.get(key, (0, None))[0] + count, inputs)
+            resolved = {f"sha256_{layout}" for (layout, _) in all_waves}
+            if run_verify.waves or any(run_fused.signed):
                 resolved.add("ed25519_verify")
+            if run_fused.signed:
+                resolved.add("quorum_accumulate")
             if pinned is not None and resolved != {pinned}:
                 raise AssertionError(f"{name}: waves resolved to {resolved}, not {pinned}")
             for kernel, count in launches.items():
                 if (count > 0) != (kernel in resolved):
                     raise AssertionError(f"{name}: {kernel} launched {count} times")
             if path_launches is None:
-                path_launches, waves, verify_inputs = (
-                    launches, run_waves.waves, run_verify.inputs)
+                path_launches, waves, verify_inputs, quorum_inputs = (
+                    launches, all_waves, run_verify.inputs, run_fused.quorum)
             elif launches != path_launches:
                 raise AssertionError(f"{name}: launches {launches} != {path_launches}")
             if kind == "P":
@@ -820,6 +1281,27 @@ def drive_paths():
                     "hash_pack_seconds_sum", "hash_device_dispatch_seconds_sum",
                     "device_wait_seconds_sum", "device_wait_seconds_count",
                     "host_crypto_seconds")))
+            if fused:
+                on_fused, touched = sum(run_fused.signed), run_fused.valid_touches()
+                log(f"path {name} run {run} fused traffic: fused_wave_dispatches="
+                    f"{fused_dispatches} fused_wave_messages="
+                    f"{int(snap.get('fused_wave_messages', 0))} "
+                    f"fused_partial_collects={int(snap.get('fused_partial_collects', 0))} "
+                    f"quorum launches (W, D, N, K, P, B)="
+                    f"{ {k: v[0] for k, v in run_fused.quorum.items()} } "
+                    f"valid quorum touches={touched} signatures on fused waves={on_fused} "
+                    f"on the auth plane's own waves={sum(real for _, real in run_verify.waves)}")
+                # In the Recordings of both packages the first authenticate
+                # flushes the auth plane's pending set before any hash wave
+                # launches, and the plane sends no quorum touches: on the
+                # paths the fused waves' verify stage and digest gate do no
+                # work, and the phase-4 fused checks hold them to their
+                # plain versions (ROADMAP Next 13).  Traffic that reaches
+                # them on a path needs checks of its own here.
+                if on_fused or touched:
+                    raise AssertionError(
+                        f"{name}: {on_fused} signatures and {touched} valid quorum touches "
+                        f"rode fused waves; check their verdicts and quorum state here")
             if signed:
                 screened = rejected = 0
                 for valid, ok in run_verify.verdicts:
@@ -829,24 +1311,32 @@ def drive_paths():
                     f"device_verified_signatures={int(snap.get('device_verified_signatures', 0))} "
                     f"waves (rows, real rows)={run_verify.waves} "
                     f"real rows the host screen rejected={screened} "
-                    f"real rows the kernel rejected={rejected} signing_s={signing.seconds:.3f} " +
+                    f"real rows the kernel rejected on the auth plane's waves={rejected} "
+                    f"signing_s={signing.seconds:.3f} " +
                     " ".join(f"{k}={snap.get(k, 0.0):.6f}" for k in (
                         "verify_pack_seconds_sum", "verify_device_dispatch_seconds_sum",
                         "device_dispatch_seconds")))
                 if corrupt is not None and rejected < 1:
                     raise AssertionError(f"{name}: no corrupt row reached the kernel")
             log(f"path {name} run {run} launches: {launches} waves: "
-                f"{ {f'{k[0]}{list(k[1])}': v[0] for k, v in run_waves.waves.items()} }")
-        if len(walls["H"]) > 1 or len(walls["D"]) > 1:
+                f"{ {f'{k[0]}{list(k[1])}': v[0] for k, v in all_waves.items()} }")
+        path_walls[name] = walls
+        if twin is not None:
+            base = path_walls[twin]
+            host_s, twin_s, dev_s = (sum(w) / len(w) for w in (base["H"], base["D"], walls["D"]))
+            log(f"path {name} walls in order {order.replace('P', '')}: device {walls['D']}; "
+                f"{twin} host {base['H']} device {base['D']}; mean device/host "
+                f"{dev_s / host_s:.4f}; mean fused/unfused device {dev_s / twin_s:.4f}")
+        elif len(walls["H"]) > 1 or len(walls["D"]) > 1:
             host_s, dev_s = (sum(w) / len(w) for w in (walls["H"], walls["D"]))
             log(f"path {name} walls in order {order.replace('P', '')}: host {walls['H']} "
                 f"device {walls['D']}; mean device/host {dev_s / host_s:.4f}")
-        results[name] = (path_launches, waves, verify_inputs)
+        results[name] = (path_launches, waves, verify_inputs, quorum_inputs)
     return results
 
 
 def report(paths, worst, clock):
-    """Phase 5: time each kernel on the inputs its paths launched it on."""
+    """Phase 6: time each kernel on the inputs its paths launched it on."""
     import numpy as np
 
     from mirbft_tpu_torch.ops.crossover import time_cuda
@@ -854,13 +1344,13 @@ def report(paths, worst, clock):
 
     kernels = []
     for name, (kernel, plain, layout, replaces) in kernel_table().items():
-        launches = sum(launches[name] for launches, _, _ in paths.values())
+        launches = sum(entry[0][name] for entry in paths.values())
         if launches <= 0:
             raise AssertionError(f"{name} was launched on no path")
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
                "cycles_per_round": 0.0, "chain_floor_ms": 0.0}
         n = 0
-        for path, (_, waves, _) in paths.items():
+        for path, (_, waves, _, _) in paths.items():
             for (wave_layout, shape), (count, (blocks, n_blocks)) in waves.items():
                 if wave_layout != layout:
                     continue
@@ -905,6 +1395,7 @@ def report(paths, worst, clock):
             "cycles_per_round": tot["cycles_per_round"] / n,
         })
     kernels.append(report_ed25519(paths, worst, clock))
+    kernels.append(report_quorum(paths, worst))
     return kernels
 
 
@@ -922,7 +1413,7 @@ def report_ed25519(paths, worst, clock):
         raise AssertionError(f"{name} was launched on no path")
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0, "bytes": 0}
     n = 0
-    for path, (_, _, inputs) in paths.items():
+    for path, (_, _, inputs, _) in paths.items():
         for rows, (count, packed) in (inputs or {}).items():
             tensors = [torch.from_numpy(a).to(DEVICE) for a in packed[:5]]
             got, want = e.ed25519_verify_kernel(*tensors), e.verify_torch(*tensors)
@@ -959,6 +1450,59 @@ def report_ed25519(paths, worst, clock):
     }
 
 
+def report_quorum(paths, worst):
+    """The quorum kernel's entry: timed on the inputs of each quorum launch
+    shape the fused paths made, held to its plain version there, averaged
+    over the launches."""
+    import torch
+
+    from mirbft_tpu_torch.ops.quorum import quorum_accumulate_torch
+
+    name = "quorum_accumulate"
+    launches = sum(entry[0][name] for entry in paths.values())
+    if launches <= 0:
+        raise AssertionError(f"{name} was launched on no path")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "dependent_launches_ms": 0.0,
+           "ops": 0, "bytes": 0}
+    n = 0
+    for path, (_, _, _, inputs) in paths.items():
+        for key, (count, tensors) in (inputs or {}).items():
+            tensors = list(tensors)
+            got = run_quorum(tensors)
+            want = quorum_accumulate_torch(*tensors[:5], tuple(tensors[5:]))
+            torch_sync()
+            err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                      for a, b in zip(got, want))
+            worst[name] = max(worst.get(name, 0), err)
+            if err:
+                raise AssertionError(f"{name}: kernel != plain on a path launch {key}")
+            ms, plain_ms, bound_ms, by, dep_ms = time_quorum(tensors)
+            log(f"path-wave {path} {name} (W, D, N, K, P, B)={list(key)} launches={count} "
+                f"ms={ms:.6f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} ({by}) "
+                f"dependent_launches_ms={dep_ms:.6f}")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bound_ms"] += count * bound_ms
+            tot["dependent_launches_ms"] += count * dep_ms
+            tot["ops" if by == "operations" else "bytes"] += count
+            n += count
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/quorum.cu",
+        "replaces": "mirbft_tpu/ops/quorum.py:66",
+        "launches": launches,
+        "launches_by_path": {p: entry[0][name] for p, entry in paths.items()},
+        "max_abs_err": worst[name],
+        "ms": tot["ms"] / n,
+        "plain_ms": tot["plain_ms"] / n,
+        "bound_ms": tot["bound_ms"] / n,
+        "bound_by": "operations" if tot["ops"] >= tot["bytes"] else "bytes",
+        "library_ms": None,
+        "dependent_launches_ms": tot["dependent_launches_ms"] / n,
+    }
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -989,6 +1533,7 @@ def main() -> int:
     log(f"build: {seconds} wall_s={time.perf_counter() - start:.2f}")
     log(_build.ptxas_report("sha256").strip())
     log(_build.ptxas_report("ed25519").strip())
+    log(_build.ptxas_report("quorum").strip())
     for name, (ops, static) in sass_mix(_build.so_path("sha256"), list(kernel_table())).items():
         int_ops = {k: v for k, v in ops.items() if k in INTEGER_ALU}
         log(f"sass {name}: {sum(ops.values())} instructions, integer ALU "
@@ -999,6 +1544,10 @@ def main() -> int:
         log(f"sass {name}: {sum(ops.values())} instructions (ladder and inversion loops "
             f"appear once); local stack loads LDL={ops.get('LDL', 0)} stores "
             f"STL={ops.get('STL', 0)}; all {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    for name, (ops, _) in sass_mix(_build.so_path("quorum"), ["quorum_accumulate"]).items():
+        log(f"sass {name}: {sum(ops.values())} instructions; barriers BAR={ops.get('BAR', 0)} "
+            f"atomics ATOMG={ops.get('ATOMG', 0)} REDG={ops.get('REDG', 0)}; all "
+            f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
 
     from mirbft_tpu_torch.ops.crossover import (
         hash_crossover_batch,
@@ -1026,6 +1575,8 @@ def main() -> int:
 
     worst = check_kernels(clock)
     worst["ed25519_verify"] = check_ed25519(clock)
+    worst["quorum_accumulate"] = check_quorum()
+    check_fused()
     # The one-time probes launch the kernels: take them before the paths,
     # whose launch counts must hold path launches only.
     probe = measure_hash_probe("cuda")

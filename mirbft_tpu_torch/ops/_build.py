@@ -49,6 +49,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_ed25519_verify": ((_P, _P, _P, _P, _P, _I64, _P, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
+    "quorum": {
+        "mirbft_quorum_accumulate": (
+            (_P, _P, _I64, _I64, _P, _P, _P, _I64, _I64, _P, _I64, _P, _I64,
+             _P, _P, _P, _P, _P, _P, _P),
+            ctypes.c_int,
+        ),
+        "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    },
     "latency_probe": {
         "mirbft_chain_latency": ((_P, _I64, _I64, _P), ctypes.c_int),
         "mirbft_chain_links_per_trip": ((), _I64),

@@ -37,9 +37,14 @@ stragglers below ``device_floor`` (``host_hashed_straggler_messages``);
     signatures are memoized as False — byzantine signers stay rejected on
     the device path.
 
-Ported from the JAX package's ``testengine/crypto.py``.  The fused pipeline
-and the cross-group ``SharedWaveMux`` belong to later slices of the port and
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+With a ``FusedCryptoPipeline`` attached (``attach_fused``), each hash wave
+is one fused dispatch (``ops/fused.py``) that also carries whatever the auth
+plane has pending: hash, verify and the quorum stage launch on one stream and
+come back with one collect.
+
+Ported from the JAX package's ``testengine/crypto.py``.  The cross-group
+``SharedWaveMux`` belongs to a later slice of the port and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,11 +57,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 from .. import metrics, tracing
 
 # Parts of the JAX package's crypto planes that later slices port; each
-# entry point raises with its ROADMAP.md item ("Next, in order").
+# entry point raises with its ROADMAP.md item.
 NOT_PORTED = {
-    "fused": (
-        "the fused hash-verify-quorum pipeline and the shared wave mux are "
-        "not ported yet: ROADMAP.md, 'Next, in order' item 3"
+    "mux": (
+        "the shared cross-group wave mux (SharedWaveMux, attach_mux) is not "
+        "ported yet: ROADMAP.md, Next 12"
     ),
     "mesh": (
         "mesh-sharded device crypto (mesh_devices > 0) is not ported yet: "
@@ -220,6 +225,10 @@ class DeviceHashPlane:
         self._inflight: List[tuple] = []  # (keys, refs, handle)
         # keys dispatched but not yet materialized (prevents re-enqueue)
         self._issued: Dict[tuple, tuple] = {}
+        # Fused pipeline (ops/fused.py), attached via attach_fused: when
+        # set, waves run hash→verify→quorum in one dispatch.
+        self._fused = None
+        self._fused_auth = None
         self._hasher = None
         if device:
             from ..ops.sha256 import TorchHasher
@@ -234,12 +243,20 @@ class DeviceHashPlane:
             )
 
     def attach_fused(self, pipeline, auth_plane=None) -> None:
-        """Route waves through a fused hash-verify-quorum pipeline."""
-        raise NotImplementedError(NOT_PORTED["fused"])
+        """Route waves through a ``FusedCryptoPipeline``: each hash wave
+        becomes ONE fused dispatch that also carries the auth plane's
+        pending signatures (its verify stage) — one dispatch and one
+        collect instead of three.  The pipeline owns the packing pool for
+        fused waves (its collect releases the lease), so the plane's own
+        hasher keeps serving only the unfused straggler path."""
+        if not self.device:
+            raise ValueError("fused pipeline requires device=True")
+        self._fused = pipeline
+        self._fused_auth = auth_plane
 
     def attach_mux(self, mux, group: int, auth_plane=None) -> None:
         """Join a host-wide shared wave multiplexer as tenant ``group``."""
-        raise NotImplementedError(NOT_PORTED["fused"])
+        raise NotImplementedError(NOT_PORTED["mux"])
 
     # -- scheduler-side -----------------------------------------------------
 
@@ -331,7 +348,8 @@ class DeviceHashPlane:
                 # the device executes chunk k the host is already packing
                 # chunk k+1 of this loop.
                 pack_start = time.perf_counter()
-                packed = self._hasher.pack(
+                packer = self._fused.hasher if self._fused else self._hasher
+                packed = packer.pack(
                     [m for (_, _, m) in entries],
                     block_bucket=bucket,
                     batch_bucket=batch_bucket,
@@ -340,7 +358,22 @@ class DeviceHashPlane:
                     time.perf_counter() - pack_start
                 )
                 dispatch_start = time.perf_counter()
-                handle = self._hasher.dispatch_packed(packed)
+                if self._fused is not None:
+                    # Fused wave: this dispatch also carries whatever the
+                    # auth plane has pending — hash + verify (+ quorum
+                    # padding) launch on one stream, one collect.
+                    auth_keys = auth_items = signed = None
+                    if self._fused_auth is not None:
+                        auth_keys, auth_items, signed = (
+                            self._fused_auth.take_pending()
+                        )
+                    handle = self._fused.dispatch_wave(
+                        [], signed=signed, packed=packed
+                    )
+                    handle.auth_keys = auth_keys
+                    handle.auth_items = auth_items
+                else:
+                    handle = self._hasher.dispatch_packed(packed)
                 step = time.perf_counter() - dispatch_start
                 dispatch_seconds += step
                 metrics.counter("device_dispatch_seconds").inc(step)
@@ -493,7 +526,51 @@ class DeviceHashPlane:
             ):
                 self._inflight.append((keys, refs, handle, dispatch_ts))
                 continue
-            digests = self._hasher.collect(handle)
+            if self._fused is not None and hasattr(handle, "verify_count"):
+                row_map = handle.row_map
+                if (
+                    needed is not None
+                    and hasattr(self._fused, "collect_ready")
+                ):
+                    want = [i for i, k in enumerate(keys) if k in needed]
+                    if want and len(want) < len(keys):
+                        # Partial collect: only the rows the caller needs
+                        # cross the host boundary; the rest of the wave's
+                        # digest words stay device-resident, and the
+                        # handle (with remapped surviving rows) goes back
+                        # in flight for a later need or chained wave.
+                        rows = [row_map[i] if row_map else i for i in want]
+                        result = self._fused.collect_ready(handle, rows)
+                        self._harvest_auth(handle, result.verdicts)
+                        for j, i in enumerate(want):
+                            self._memo_put(keys[i], refs[i], result.digests[j])
+                            self._issued.pop(keys[i], None)
+                        taken = set(want)
+                        rest = [
+                            i for i in range(len(keys)) if i not in taken
+                        ]
+                        handle.row_map = [
+                            row_map[i] if row_map else i for i in rest
+                        ]
+                        self._inflight.append(
+                            (
+                                [keys[i] for i in rest],
+                                [refs[i] for i in rest],
+                                handle,
+                                dispatch_ts,
+                            )
+                        )
+                        continue
+                # Fused handle: ONE sync yields digests, verdicts and
+                # quorum posts together; verdicts flow straight into the
+                # auth plane's memo — no separate verify collect.
+                result = self._fused.collect(handle)
+                digests = result.digests
+                if row_map:
+                    digests = [digests[r] for r in row_map]
+                self._harvest_auth(handle, result.verdicts)
+            else:
+                digests = self._hasher.collect(handle)
             for key, ref, digest in zip(keys, refs, digests):
                 self._memo_put(key, ref, digest)
                 self._issued.pop(key, None)
@@ -509,6 +586,23 @@ class DeviceHashPlane:
         metrics.histogram("device_wait_seconds").observe(
             time.perf_counter() - start
         )
+
+    def _harvest_auth(self, handle, verdicts) -> None:
+        """Write a fused wave's verify verdicts into the auth plane's memo —
+        exactly once per handle (a partial collect already carries the full
+        verdict set, so later collects of the same handle must not
+        re-harvest)."""
+        if not handle.auth_keys:
+            return
+        auth = self._fused_auth
+        for akey, item, verdict in zip(
+            handle.auth_keys, handle.auth_items, verdicts
+        ):
+            if item[0] in auth.keys:
+                auth._memo_put(akey, item[2], bool(verdict))
+        auth.verified_count += len(handle.auth_keys)
+        handle.auth_keys = None
+        handle.auth_items = None
 
     def _host_hash(self, message: bytes) -> bytes:
         start = time.perf_counter()
@@ -527,7 +621,7 @@ class SharedWaveMux:
     """Host-wide cross-group crypto multiplexer (a later slice)."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED["fused"])
+        raise NotImplementedError(NOT_PORTED["mux"])
 
 
 class DeviceAuthPlane:

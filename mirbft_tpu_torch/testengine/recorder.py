@@ -9,9 +9,10 @@ per work category).  ``drain_clients`` runs the simulation until every
 client's requests commit on every node.
 
 Ported from the JAX package's ``testengine/recorder.py``: the device hash
-and auth planes run the port's CUDA kernels (``CryptoConfig.torch_device``),
-and the parts later slices port (the fused pipeline, the shared wave mux,
-mesh sharding) raise ``NotImplementedError`` naming their ROADMAP.md item.
+and auth planes and the fused pipeline run the port's CUDA kernels
+(``CryptoConfig.torch_device``), and the parts later slices port (the shared
+wave mux, mesh sharding) raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -540,8 +541,8 @@ class Recorder:
         crypto = self.crypto
         if crypto.mesh_devices:
             raise NotImplementedError(NOT_PORTED["mesh"])
-        if crypto.device and (crypto.fused or crypto.mux is not None):
-            raise NotImplementedError(NOT_PORTED["fused"])
+        if crypto.device and crypto.mux is not None:
+            raise NotImplementedError(NOT_PORTED["mux"])
         if crypto.device:
             hash_plane = DeviceHashPlane(
                 device=True,
@@ -583,6 +584,14 @@ class Recorder:
             )
             for client_id, pub in signed_pubs.items():
                 auth_plane.register(client_id, pub)
+
+        if crypto.fused and crypto.device:
+            from ..ops.fused import FusedCryptoPipeline
+
+            hash_plane.attach_fused(
+                FusedCryptoPipeline(kernel=crypto.kernel, device=crypto.torch_device),
+                auth_plane,
+            )
 
         nodes = []
         for i, node_config in enumerate(self.node_configs):

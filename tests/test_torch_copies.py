@@ -111,3 +111,44 @@ def test_host_side_of_ed25519_is_copied():
     assert len(blocks) == 6 and all(len(b) > 300 for b in blocks)
     for block in blocks:
         assert block in port
+
+
+def _read(package, path):
+    with open(os.path.join(package, path), encoding="utf-8") as fh:
+        return fh.read()
+
+
+# (module, [(start, end or None for the end of the file)]): the reference's
+# host code that the port's modules of the fused wave carry unchanged.
+FUSED_BLOCKS = {
+    "ops/quorum.py": [
+        ("MASK_WORDS = 8", "\n\n\ndef _kernel"),
+        ("def host_accumulate(", None),
+    ],
+    "ops/fused.py": [
+        ("class FusedResult:", "\n\n\nclass FusedCryptoPipeline"),
+        ("    def _pack_quorum(", "\n\n    def _stage("),
+        ("def host_fused_reference(", None),
+    ],
+    "testengine/crypto.py": [
+        ("    def attach_fused(", "\n\n    def attach_mux("),
+        ("            if self._fused is not None and hasattr(handle, \"verify_count\"):",
+         "\n            for key, ref, digest in zip(keys, refs, digests):"),
+        ("    def _harvest_auth(", "\n\n    def _host_hash("),
+    ],
+}
+
+
+@pytest.mark.parametrize("module", list(FUSED_BLOCKS))
+def test_host_side_of_the_fused_wave_is_copied(module):
+    """The host code of the quorum plane (the packer, the numpy reference,
+    the crossing band), of the fused pipeline (its result type, its quorum
+    packer and the host oracle) and the fused branches of the hash plane
+    (attach, the partial and full collects, the exactly-once verdict
+    harvest) are carried as block copies, after the package rename."""
+    ref = _rewrite(_read(REF, module))
+    port = _read(PORT, module)
+    for start, end in FUSED_BLOCKS[module]:
+        i = ref.index(start)
+        block = ref[i:] if end is None else ref[i : ref.index(end, i)]
+        assert len(block) > 300 and block.rstrip() in port, (module, start)

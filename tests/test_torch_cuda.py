@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import QUORUM_SHAPES, as_tensors, gated_stream
 from mirbft_tpu_torch import metrics
 from mirbft_tpu_torch.ops import ed25519
 from mirbft_tpu_torch.ops.sha256 import (
@@ -224,3 +225,64 @@ def test_ed25519_verifier_on_the_card():
     assert handle.event is not None and handle.ok.is_cuda
     assert verifier.collect(handle).tolist() == expected
     assert verifier.verify_batch(pubs[:20], msgs[:20], sigs[:20]).tolist() == expected[:20]
+
+
+@pytest.mark.parametrize("W,D,N,K", QUORUM_SHAPES, ids=[f"N{n}-K{k}" for _, _, n, k in QUORUM_SHAPES])
+def test_quorum_kernel_equals_twin(W, D, N, K):
+    from mirbft_tpu_torch.ops import quorum
+
+    arrays = gated_stream(np.random.default_rng(N * 100 + K), W, D, N, K)
+    cpu = as_tensors(arrays, "cpu")
+    want = quorum.quorum_accumulate_torch(*cpu[:5], tuple(cpu[5:]))
+    cuda = as_tensors(arrays, "cuda")
+    before = quorum.quorum_accumulate.launches
+    posts, newbits = quorum.quorum_accumulate(*cuda[:5], tuple(cuda[5:]))
+    torch.cuda.synchronize()
+    assert quorum.quorum_accumulate.launches == before + 1
+    for got, expect in zip((cuda[0], cuda[1], posts, newbits), want):
+        assert torch.equal(got.cpu(), expect)
+    assert 0 < int(want[3].sum()) < want[3].numel()
+
+
+def test_fused_wave_on_the_card():
+    """A lanes wave with signed rows and gated touches, chained into a
+    batch wave, against the host oracle; each stage launched its kernel."""
+    from mirbft_tpu_torch.ops import quorum
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline, host_fused_reference
+    from mirbft_tpu_torch.ops.sha256_pallas import sha256_batch
+    from mirbft_tpu_torch.ops.sha256_pallas_lanes import sha256_lanes
+
+    (pubs, msgs, sigs), _, expected = _signed_rows()
+    messages = _messages(11, 1500, 4)
+    d1 = [hashlib.sha256(m).digest() for m in messages]
+    quorum1 = [(s, [(s % 16, 0, s, d1[s]), (3, 1, 7, d1[8])]) for s in range(8)]
+    pipe = FusedCryptoPipeline(n_slots=16, n_digest_slots=2, kernel="lanes")
+    launches = [k.launches for k in (sha256_lanes, ed25519.ed25519_verify_kernel,
+                                     quorum.quorum_accumulate)]
+    h1 = pipe.dispatch_wave(messages, signed=(pubs, msgs, sigs), quorum=quorum1)
+    assert [k.launches for k in (sha256_lanes, ed25519.ed25519_verify_kernel,
+                                 quorum.quorum_accumulate)] == [n + 1 for n in launches]
+    assert h1.words.tensor.is_cuda and h1.rows == 2048
+    scan = FusedCryptoPipeline(n_slots=16, n_digest_slots=2, kernel="scan")
+    before = sha256_batch.launches
+    messages2 = messages[:5]
+    quorum2 = [(9, [(1, 1, 100, d1[100]), (2, 1, h1.rows + 3, d1[3])])]
+    scan.masks.copy_(pipe.masks)
+    scan.counts.copy_(pipe.counts)
+    h2 = scan.dispatch_wave(messages2, quorum=quorum2, chain=h1)
+    assert sha256_batch.launches == before + 1 and h2.ok is None
+    r1 = pipe.collect(h1)
+    masks0 = np.zeros((16, 2, 8), np.uint32)
+    counts0 = np.zeros((16, 2), np.int32)
+    rd, _, rm, rc, rp, rn = host_fused_reference(
+        messages, None, quorum1, masks0, counts0)
+    assert r1.digests == rd and r1.verdicts.tolist() == expected
+    assert (r1.posts[:8] == rp[:8]).all() and (r1.newbits[:8] == rn[:8]).all()
+    _, _, rm2, rc2, rp2, rn2 = host_fused_reference(
+        messages2, None, quorum2, rm, rc, prev_digests=rd, prev_rows=h1.rows)
+    part = scan.collect_ready(h2, [4, 0])
+    assert part.digests == [d1[4], d1[0]]
+    assert (part.posts[:1] == rp2[:1]).all() and (part.newbits[:1] == rn2[:1]).all()
+    dm, dc = scan.quorum_state()
+    assert (dm == rm2).all() and (dc == rc2).all()
+    assert scan.collect(h2).digests == d1[:5] and h2.lease is None and h1.lease is None

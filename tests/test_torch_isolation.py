@@ -5,8 +5,9 @@ of the JAX package ``mirbft_tpu``.
 One subprocess makes both unimportable (``sys.modules[name] = None``),
 imports every module of the port and runs the 4-node recording with the
 device hash plane on the CPU twins, then a signed 4-node recording with
-the device auth plane on the Ed25519 twin.  A text scan of the sources catches
-imports that the run does not reach.
+the device auth plane on the Ed25519 twin, then the 4-node recording
+through the fused pipeline and one quorum wave stream.  A text scan of the
+sources catches imports that the run does not reach.
 """
 
 import os
@@ -39,9 +40,23 @@ signed = Spec(node_count=4, client_count=4, reqs_per_client=4, batch_size=2,
                                   auth_floor=1, defer_unready=False, torch_device="cpu"))
 signed_steps = signed.recorder().recording().drain_clients(timeout=200_000)
 assert metrics.snapshot().get("device_verify_dispatches", 0) > 0
+metrics.default_registry.reset()
+fused = Spec(node_count=4, client_count=4, reqs_per_client=20, batch_size=5,
+             crypto=CryptoConfig(device=True, hash_wave=4, hash_floor=1, fused=True,
+                                 defer_unready=False, torch_device="cpu"))
+fused_steps = fused.recorder().recording().drain_clients(timeout=200_000)
+assert metrics.snapshot().get("fused_wave_dispatches", 0) > 0
+import numpy as np
+from mirbft_tpu_torch.ops import quorum
+masks, counts = quorum.quorum_state_to_torch(np.zeros((4, 2, 8), np.uint32),
+                                             np.zeros((4, 2), np.int32), "cpu")
+stream = quorum.pack_wave_stream([(3, [(0, 0), (1, 1)]), (40, [(0, 0)])], 4)
+posts = quorum.device_accumulate(masks, counts, *stream)[2]
+assert posts[:, 0].tolist() == [1, 2]
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith("jax.") or m == "mirbft_tpu" or m.startswith("mirbft_tpu.")))
-print("modules", len(names), "steps", steps, "signed_steps", signed_steps, "leaked", leaked)
+print("modules", len(names), "steps", steps, "signed_steps", signed_steps,
+      "fused_steps", fused_steps, "leaked", leaked)
 """
 
 
@@ -59,7 +74,7 @@ def test_port_runs_with_jax_and_reference_unimportable():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "leaked []" in out.stdout, out.stdout
-    assert "steps 746 signed_steps 1169" in out.stdout, out.stdout
+    assert "steps 746 signed_steps 1169 fused_steps 746" in out.stdout, out.stdout
 
 
 _JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)

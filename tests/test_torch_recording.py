@@ -5,8 +5,9 @@ A 4-node Spec runs through both packages with the device hash plane on
 scan program) and blocking collects (``defer_unready=False``), so wave
 grouping cannot touch the simulated schedule: both must take the same
 number of steps and end with the same per-node (checkpoint seq, checkpoint
-hash), and so must the port's host-path run.  The parts later slices port
-raise ``NotImplementedError``.
+hash), and so must the port's host-path run; so must the port's fused
+Recording and the JAX package's.  The parts later slices port (the shared
+wave mux, mesh sharding) raise ``NotImplementedError``.
 """
 
 import pytest
@@ -138,14 +139,30 @@ def test_auth_plane_asks_for_the_card_only_on_the_device_path(monkeypatch):
         DeviceAuthPlane(lambda client, req: [], mesh_devices=2, torch_device="cpu")
 
 
+def test_fused_run_matches_reference_fused_run(reference_run):
+    """CryptoConfig(fused=True): the port's FusedCryptoPipeline on the
+    twins against the JAX package's fused Recording (and so the host path's
+    steps and checkpoints), with fused waves carrying the traffic."""
+    ref_steps, ref_finals, ref_snap = _fingerprint(
+        RefSpec(**BASE, crypto=RefCryptoConfig(**PLANE, fused=True)), ref_metrics
+    )
+    steps, finals, snap = _fingerprint(
+        Spec(**BASE, crypto=CryptoConfig(**PLANE, torch_device="cpu", fused=True)), metrics
+    )
+    assert (steps, finals) == (ref_steps, ref_finals) == reference_run[:2]
+    assert ref_snap.get("fused_wave_dispatches", 0) > 0
+    assert snap.get("fused_wave_dispatches", 0) > 0
+    assert snap.get("fused_wave_messages", 0) > 0
+    assert snap.get("device_hash_dispatches", 0) == snap["fused_wave_dispatches"]
+
+
 @pytest.mark.parametrize(
     "spec_kw",
     [
-        dict(crypto=CryptoConfig(**PLANE, torch_device="cpu", fused=True)),
         dict(crypto=CryptoConfig(**PLANE, torch_device="cpu", mux=object())),
         dict(crypto=CryptoConfig(**PLANE, torch_device="cpu", mesh_devices=2)),
     ],
-    ids=["fused", "mux", "mesh"],
+    ids=["mux", "mesh"],
 )
 def test_later_slices_raise_naming_the_roadmap(spec_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
