@@ -9,7 +9,8 @@ Phases (any failure raises, and the script exits nonzero without a result):
             it; no card, or no port package beside this script -> exit 1.
 2. build    every CUDA source of the port, one nvcc each, started together;
             build seconds, the ptxas report (registers, spills, the local
-            stack) and each kernel's SASS instruction mix (cuobjdump).  Then
+            stack; the quorum kernel must have no spill and no stack) and
+            each kernel's SASS instruction mix (cuobjdump).  Then
             the SM clock (nvidia-smi, sampled while a spin kernel runs) and
             the integer pipes (csrc/latency_probe.cu): the dependent-issue
             latency, the issue cost of each instruction kind, the SHA-256
@@ -31,7 +32,12 @@ Phases (any failure raises, and the script exits nonzero without a result):
             and accept it, which is why the host screens it) and through
             the verifier (rejected).  Then the quorum kernel (gate and
             accumulate) at the fused bench wave's stream (W = 4,096, D = 4,
-            N = 8, K = 8) and at N = 64 with K = 8 and 40, on random streams
+            N = 8, K = 8), at N = 64 with K = 8 and 40, at N = 512 with
+            K = 40 (20,480 touches: six chunks of the kernel's table) and
+            at waves of 4,160 touches (wider than the table: the kernel's
+            global branch) and at W = 8,192 (its hash table), each line
+            with the table's capacity, chunks
+            and shared memory and an empty kernel's launch_floor_ms, on random streams
             with duplicate touches, slots and sources out of range both
             ways, gated rows that match and do not, a chained prev_words
             and group tags with -1: masks, counts, posts and newbits bit
@@ -190,9 +196,14 @@ VERIFY_BYTES_PER_ROW = 3 * 32 * 4 + 2 * 256 * 4 + 1
 VERIFY_SERIAL_MULS = 5 + 256 * 4 + 265 + 1
 # The quorum kernel's streams (W, D, N, K): the fused bench wave's (4,096
 # slots, 4 digest slots, eight one-touch waves padded to K = 8) and longer
-# ones, K = 40 past a warp; its integer operations a touch (the gate's 8
-# compares, the indices, the word, the atomics), for the bound.
-QUORUM_SHAPES = ((4096, 4, 8, 8), (4096, 4, 64, 8), (4096, 4, 64, 40))
+# ones, K = 40 past a warp; 20,480 touches, which overflow the kernel's
+# table of 4,096 and run in six chunks; waves of 4,160 touches, wider than
+# the table, on the kernel's global branch; and 8,192 slots (two tenants'
+# slabs of the bench's 4,096), whose 32,768 rows the kernel finds through
+# its hash table, not its direct map.  Its integer operations a touch (the
+# gate's 8 compares, the indices, the word, the atomics), for the bound.
+QUORUM_SHAPES = ((4096, 4, 8, 8), (4096, 4, 64, 8), (4096, 4, 64, 40), (4096, 4, 512, 40),
+                 (4096, 4, 2, 4160), (8192, 4, 64, 8))
 QUORUM_OPS_PER_TOUCH = 40
 # The fused bench wave (bench.py bench_fused_pipeline) and the signed rows
 # of c2's verify wave that ride it in the signed case.
@@ -227,6 +238,25 @@ def sm_clock_hz() -> float:
     finally:
         torch.cuda.synchronize()
     return float(out[0]) * 1e6
+
+
+def ptxas_kernel(report, kernel):
+    """{registers, stack_bytes, spill_stores, spill_loads} of one kernel in
+    a ``ptxas -v`` report; {} if the report does not name it."""
+    import re
+
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            text = " ".join(lines[i + 1:i + 5])
+            stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", text)
+            regs = re.search(r"Used (\d+) registers", text)
+            if stack and regs:
+                return {"registers": int(regs.group(1)), "stack_bytes": int(stack.group(1)),
+                        "spill_stores": int(stack.group(2)),
+                        "spill_loads": int(stack.group(3))}
+    return {}
 
 
 def u32(t):
@@ -732,8 +762,23 @@ def check_quorum():
             f"gated={int((tensors[4] & (tensors[7] >= 0)).sum())} ms={ms:.6f} "
             f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} ({by}) "
             f"dependent_launches_ms={dep_ms:.6f} (one launch a wave == one launch) "
-            f"max_abs_err={err} ok")
+            f"{quorum_plan_text(w, d, n, k)} max_abs_err={err} ok")
     return worst
+
+
+def quorum_plan_text(w, d, n, k):
+    """How the kernel ran a stream (its table, chunks and shared memory)
+    and the launch floor beside it."""
+    from mirbft_tpu_torch.ops import latency_probe
+    from mirbft_tpu_torch.ops.quorum import launch_plan
+
+    plan = launch_plan(w, d, n, k)
+    entries = "direct_map" if plan["map_rows"] else f"hash_table slots={plan['slots']}"
+    table = (f"table_capacity={plan['capacity']} chunks={plan['chunks']} "
+             f"chunk_waves={plan['chunk_waves']} entries_by={entries}"
+             if plan["chunk_waves"] else f"table_capacity={plan['capacity']} global_branch")
+    return (f"{table} dynamic_smem_bytes={plan['smem_bytes']} threads={plan['threads']} "
+            f"launch_floor_ms={latency_probe.launch_floor_ms():.6f}")
 
 
 def signed_rows(count, corrupt_signer=3, signers=16):
@@ -757,11 +802,29 @@ def signed_rows(count, corrupt_signer=3, signers=16):
     return pubs, msgs, sigs, corrupt
 
 
-def check_fused():
+def fused_bound(pipe, quorum, signed, hz):
+    """(bound_ms, signed_bound_ms) of one fused bench wave: the sum of its
+    stages' bounds, the hash kernel's on its live blocks, the quorum
+    kernel's on its packed stream and, with signed rows, the verify
+    kernel's."""
+    import numpy as np
+    import torch
+
+    blocks = (FUSED_MSG_LEN + 9 + 63) // 64  # SHA-256 padding: 0x80 and the length
+    hash_ms, _ = bound_of(np.full(FUSED_BATCH, blocks), blocks, FUSED_BATCH * 8)
+    sources, touches, valid, rows, claimed, groups = pipe._pack_quorum(quorum, FUSED_BATCH, 1)
+    stream = [pipe.masks, pipe.counts, *(torch.from_numpy(a) for a in (sources, touches, valid)),
+              torch.zeros((1, 8)), torch.zeros((FUSED_BATCH, 8)), torch.from_numpy(rows)]
+    quorum_ms, _ = quorum_bound(stream)
+    verify_ms, _ = verify_bound(signed, hz)
+    return hash_ms + quorum_ms, hash_ms + quorum_ms + verify_ms
+
+
+def check_fused(clock):
     """Phase 4: the fused wave at the bench's width, unsigned and signed,
     against hashlib, verify_torch, verify_one and the quorum's plain
-    version; its time per dispatch pipelined; and a chained pair of waves
-    against host_fused_reference."""
+    version; its time per dispatch pipelined, beside the sum of its stages'
+    bounds; and a chained pair of waves against host_fused_reference."""
     import numpy as np
     import torch
 
@@ -871,15 +934,18 @@ def check_fused():
     )
     if not all(checks):
         raise AssertionError(f"fused chain != host_fused_reference: {checks}")
+    bound_ms, signed_bound_ms = fused_bound(pipe, quorum, FUSED_SIGNED, clock[0])
     log(f"fused_wave messages={FUSED_BATCH} msg_len={FUSED_MSG_LEN} layout={layout} "
         f"rows={handle.rows} quorum_waves={len(quorum)} depth={FUSED_DEPTH} "
-        f"fused_wave_4096_ms={piped * 1e3:.6f} signed_rows={FUSED_SIGNED} "
-        f"fused_wave_4096_signed_ms={piped_signed * 1e3:.6f} "
+        f"fused_wave_4096_ms={piped * 1e3:.6f} bound_ms={bound_ms:.6f} "
+        f"signed_rows={FUSED_SIGNED} fused_wave_4096_signed_ms={piped_signed * 1e3:.6f} "
+        f"signed_bound_ms={signed_bound_ms:.6f} (sums of the stages' bounds) "
         f"corrupt_rows_rejected_by_the_kernel={rejected} of {len(corrupt)} "
         f"verify_one_rows={len(sample)} chain: wave 2 layout={h2.layout} gated on "
         f"wave 1 rows, collect_ready + collect == host_fused_reference, leases released | "
         f"{nvidia_smi_line()}")
-    return {"fused_wave_4096_ms": piped * 1e3, "fused_wave_4096_signed_ms": piped_signed * 1e3}
+    return {"fused_wave_4096_ms": piped * 1e3, "fused_wave_4096_signed_ms": piped_signed * 1e3,
+            "bound_ms": bound_ms, "signed_bound_ms": signed_bound_ms}
 
 
 class FusedLog:
@@ -1456,6 +1522,7 @@ def report_quorum(paths, worst):
     over the launches."""
     import torch
 
+    from mirbft_tpu_torch.ops import latency_probe
     from mirbft_tpu_torch.ops.quorum import quorum_accumulate_torch
 
     name = "quorum_accumulate"
@@ -1463,7 +1530,7 @@ def report_quorum(paths, worst):
     if launches <= 0:
         raise AssertionError(f"{name} was launched on no path")
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "dependent_launches_ms": 0.0,
-           "ops": 0, "bytes": 0}
+           "launch_floor_ms": 0.0, "ops": 0, "bytes": 0}
     n = 0
     for path, (_, _, _, inputs) in paths.items():
         for key, (count, tensors) in (inputs or {}).items():
@@ -1477,9 +1544,11 @@ def report_quorum(paths, worst):
             if err:
                 raise AssertionError(f"{name}: kernel != plain on a path launch {key}")
             ms, plain_ms, bound_ms, by, dep_ms = time_quorum(tensors)
+            floor_ms = latency_probe.launch_floor_ms()
             log(f"path-wave {path} {name} (W, D, N, K, P, B)={list(key)} launches={count} "
                 f"ms={ms:.6f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} ({by}) "
-                f"dependent_launches_ms={dep_ms:.6f}")
+                f"dependent_launches_ms={dep_ms:.6f} launch_floor_ms={floor_ms:.6f}")
+            tot["launch_floor_ms"] += count * floor_ms
             tot["ms"] += count * ms
             tot["plain_ms"] += count * plain_ms
             tot["bound_ms"] += count * bound_ms
@@ -1500,6 +1569,7 @@ def report_quorum(paths, worst):
         "bound_by": "operations" if tot["ops"] >= tot["bytes"] else "bytes",
         "library_ms": None,
         "dependent_launches_ms": tot["dependent_launches_ms"] / n,
+        "launch_floor_ms": tot["launch_floor_ms"] / n,
     }
 
 
@@ -1544,9 +1614,15 @@ def main() -> int:
         log(f"sass {name}: {sum(ops.values())} instructions (ladder and inversion loops "
             f"appear once); local stack loads LDL={ops.get('LDL', 0)} stores "
             f"STL={ops.get('STL', 0)}; all {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    quorum_regs = ptxas_kernel(_build.ptxas_report("quorum"), "quorum_accumulate_kernel")
+    log(f"ptxas quorum_accumulate_kernel: {quorum_regs}")
+    if quorum_regs.get("spill_stores", 1) or quorum_regs.get("spill_loads", 1) or \
+            quorum_regs.get("stack_bytes", 1):
+        raise AssertionError(f"quorum_accumulate_kernel spills or has a stack: {quorum_regs}")
     for name, (ops, _) in sass_mix(_build.so_path("quorum"), ["quorum_accumulate"]).items():
         log(f"sass {name}: {sum(ops.values())} instructions; barriers BAR={ops.get('BAR', 0)} "
-            f"atomics ATOMG={ops.get('ATOMG', 0)} REDG={ops.get('REDG', 0)}; all "
+            f"atomics ATOMG={ops.get('ATOMG', 0)} REDG={ops.get('REDG', 0)} shared "
+            f"ATOMS={ops.get('ATOMS', 0)} generic ATOM={ops.get('ATOM', 0)}; all "
             f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
 
     from mirbft_tpu_torch.ops.crossover import (
@@ -1576,7 +1652,7 @@ def main() -> int:
     worst = check_kernels(clock)
     worst["ed25519_verify"] = check_ed25519(clock)
     worst["quorum_accumulate"] = check_quorum()
-    check_fused()
+    check_fused(clock)
     # The one-time probes launch the kernels: take them before the paths,
     # whose launch counts must hold path launches only.
     probe = measure_hash_probe("cuda")

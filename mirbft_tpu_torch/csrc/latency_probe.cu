@@ -26,6 +26,10 @@
 //   consumer warp's instruction stream alone, for one message per lane or
 //   two interleaved.
 //
+// - empty: a kernel of one warp that does nothing.  Its time back to back
+//   on a stream is the launch floor, the line against which a launch of
+//   one short wave (csrc/quorum.cu on the paths) is read.
+//
 // Measurement tools only: no path of the port launches them.  Plain C
 // interface for ctypes, like csrc/sha256.cu.
 
@@ -264,6 +268,13 @@ extern "C" int mirbft_field_probe(void* out, long long op, long long seed, long 
     case 4: field_probe_kernel<4><<<1, 32, 0, s>>>(o, (uint32_t)seed, calls); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+__global__ void empty_kernel() {}
+
+extern "C" int mirbft_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,7 @@ every module on a machine with no CUDA toolkit.  ``ptxas -v`` output (each
 kernel's registers, shared memory and spills) is kept beside the library as
 ``lib<name>-<key>.ptxas.txt``.  ``other_library`` builds another revision of
 a source the same way, so that the A/B scripts (``ab_sha256.py``,
-``ab_ed25519.py``) can time two revisions in one process.
+``ab_ed25519.py``, ``ab_quorum.py``) can time two revisions in one process.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              _P, _P, _P, _P, _P, _P, _P),
             ctypes.c_int,
         ),
+        "mirbft_quorum_plan": ((_I64, _I64, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
     "latency_probe": {
@@ -64,6 +65,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_issue_per_trip": ((), _I64),
         "mirbft_rounds_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_field_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
+        "mirbft_empty_launch": ((_P,), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
 }
@@ -165,6 +167,8 @@ def _build_and_load(name: str, source: Optional[str]) -> ctypes.CDLL:
         _finish(name, proc, source)
     lib = ctypes.CDLL(so_path(name, source))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
+        if source is not None and not hasattr(lib, fn):
+            continue  # an older revision may lack a later helper
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = restype
     return lib
@@ -188,7 +192,9 @@ def other_library(name: str, source: str) -> ctypes.CDLL:
     """``source``, another revision of ``csrc/<name>.cu`` that exports the
     same launchers (for timing the two in turns), built with the same flags
     beside the port's libraries and loaded with those launchers'
-    signatures.  Headers it includes are taken from beside it."""
+    signatures (those it exports: an older revision may lack a later
+    helper, such as ``mirbft_quorum_plan``).  Headers it includes are
+    taken from beside it."""
     return _build_and_load(name, source)
 
 

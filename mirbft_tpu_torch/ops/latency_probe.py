@@ -10,7 +10,7 @@ chain ran at.  A SHA-256 round's loop-carried chain is four such
 instructions, so a wave whose longest message has ``n`` live blocks takes at
 least ``n * 64 * 4 * latency`` cycles (``chip_smoke.py``'s ``chain_floor_ms``).
 ``issue_cycles``, ``round_cycles`` and ``field_cycles`` time the file's
-other probes.
+other probes, and ``launch_floor_ms`` an empty kernel's launch.
 They measure the card only: there is no CPU version.
 """
 
@@ -106,3 +106,21 @@ def field_cycles(op: str, calls: int = 1 << 12) -> float:
     )
     _build.check(lib, code, "field_probe")
     return int(out[0].item()) / calls
+
+
+def launch_floor_ms(repeats: int = 20) -> float:
+    """Device milliseconds per launch of an empty kernel, back to back on
+    the current stream by ``crossover.time_cuda``: the floor under any
+    launch, against which a one-wave quorum launch is read."""
+    import torch
+
+    from . import _build
+    from .crossover import time_cuda
+
+    lib = _build.library("latency_probe")
+
+    def launch():
+        _build.check(lib, lib.mirbft_empty_launch(torch.cuda.current_stream().cuda_stream),
+                     "empty_launch")
+
+    return time_cuda(launch, repeats=repeats) * 1e3

@@ -287,6 +287,26 @@ quorum_accumulate.launches = 0
 # name to a wrapper of it (callers go through ``quorum.quorum_accumulate``).
 _counted = quorum_accumulate
 
+PLAN_FIELDS = ("capacity", "chunk_waves", "chunks", "rows", "slots", "map_rows", "smem_bytes",
+               "threads")
+
+
+def launch_plan(w: int, d: int, n: int, k: int) -> dict:
+    """How the CUDA kernel runs a stream of N waves of K touches on [W, D]
+    state (``csrc/quorum.cu``'s ``plan_of``): the table's capacity in
+    touches, the whole waves a chunk, the chunks, the largest chunk's
+    touches, the hash slots, the rows of the direct map (0: the hash table
+    finds the entries), the dynamic shared memory in bytes and the block
+    size; ``chunk_waves`` 0 is the global branch.  Builds the kernel's
+    library (a card's machine only)."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    _build.library("quorum").mirbft_quorum_plan(w, d, n, k, 0, out)
+    return dict(zip(PLAN_FIELDS, out))
+
 
 def quorum_state_to_torch(masks: np.ndarray, counts: np.ndarray, device="cuda"):
     """numpy quorum state (masks [W, D, 8] uint32, counts [W, D] int32, as

@@ -227,7 +227,8 @@ def test_ed25519_verifier_on_the_card():
     assert verifier.verify_batch(pubs[:20], msgs[:20], sigs[:20]).tolist() == expected[:20]
 
 
-@pytest.mark.parametrize("W,D,N,K", QUORUM_SHAPES, ids=[f"N{n}-K{k}" for _, _, n, k in QUORUM_SHAPES])
+@pytest.mark.parametrize("W,D,N,K", QUORUM_SHAPES, ids=[
+    f"N{n}-K{k}" if w == 4096 else f"W{w}-N{n}-K{k}" for w, _, n, k in QUORUM_SHAPES])
 def test_quorum_kernel_equals_twin(W, D, N, K):
     from mirbft_tpu_torch.ops import quorum
 

@@ -181,6 +181,9 @@ def test_edge_inputs_follow_the_jax_program(name):
 # csrc/quorum.cu built for the host.
 # ---------------------------------------------------------------------------
 
+CARD_CAPACITY = 4096  # quorum::kCapacity: touches a chunk holds on the card
+CARD_DIRECT_ROWS = 1 << 14  # quorum::kDirectRows: W x D rows found through the direct map
+
 HOST_WRAPPER = """
 #define __host__
 #define __device__
@@ -190,7 +193,8 @@ extern "C" void host_accumulate(
     const void* touches, const void* valid, long long N, long long K,
     const void* prev_words, long long P, const void* digests, long long B,
     const void* digest_rows, const void* claimed, const void* row_groups,
-    const void* touch_groups, void* posts, void* newbits) {{
+    const void* touch_groups, void* posts, void* newbits, long long capacity,
+    long long direct_rows) {{
   const quorum::Stream s{{
       (uint32_t*)masks, (int32_t*)counts, W, D, (const int32_t*)sources,
       (const int32_t*)touches, (const uint8_t*)valid, N, K,
@@ -198,7 +202,7 @@ extern "C" void host_accumulate(
       (const int32_t*)digest_rows, (const uint32_t*)claimed,
       (const int32_t*)row_groups, (const int32_t*)touch_groups,
       (int32_t*)posts, (uint8_t*)newbits}};
-  quorum::accumulate_host(s);
+  quorum::accumulate_host(s, capacity, direct_rows);
 }}
 """
 
@@ -206,8 +210,10 @@ extern "C" void host_accumulate(
 @pytest.fixture(scope="module")
 def host_build(tmp_path_factory):
     """``csrc/quorum.cu`` built for the host: outside its kernel and
-    launcher it is plain C++, and ``accumulate_host`` runs each of a wave's
-    phases over every touch in turn."""
+    launcher it is plain C++, and ``accumulate_host`` runs the kernel's
+    stages (the table, its chunks and the global branch for waves wider
+    than the table), each over every index in turn, at the capacity and
+    with the direct map's row limit it is given (0: the hash table)."""
     compiler = shutil.which("g++") or shutil.which("c++")
     assert compiler is not None, "a C++ compiler is needed (the port's _native build uses it)"
     folder = tmp_path_factory.mktemp("quorum_host")
@@ -222,7 +228,8 @@ def host_build(tmp_path_factory):
     return ctypes.CDLL(str(library))
 
 
-def _host(lib, masks, counts, sources, touches, valid, gate=None):
+def _host(lib, masks, counts, sources, touches, valid, gate=None, capacity=CARD_CAPACITY,
+          direct_rows=CARD_DIRECT_ROWS):
     n, k = valid.shape
     if gate is None:
         gate = (np.zeros((0, 8), np.uint32), np.zeros((0, 8), np.uint32),
@@ -240,7 +247,8 @@ def _host(lib, masks, counts, sources, touches, valid, gate=None):
         ctypes.c_longlong(masks.shape[1]), ptr(arrays[0]), ptr(arrays[1]), ptr(arrays[2]),
         ctypes.c_longlong(n), ctypes.c_longlong(k), ptr(prev), ctypes.c_longlong(prev.shape[0]),
         ptr(digests), ctypes.c_longlong(digests.shape[0]),
-        *(ptr(a) for a in arrays[5:]), ptr(posts), ptr(newbits),
+        *(ptr(a) for a in arrays[5:]), ptr(posts), ptr(newbits), ctypes.c_longlong(capacity),
+        ctypes.c_longlong(direct_rows),
     )
     return masks, counts, posts, newbits.astype(bool)
 
@@ -290,3 +298,174 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         bad = list(tensors[5:])
         bad[4] = bad[4][:-1].contiguous()  # row_groups shorter than P + B
         port.quorum_accumulate(*tensors[:5], tuple(bad))
+
+
+# ---------------------------------------------------------------------------
+# The staged kernel at a small table: chunks, the global branch, shared rows.
+# ---------------------------------------------------------------------------
+
+SMALL_CAPACITY = 16  # touches a chunk holds in these cases
+
+
+def _plan(lib, w, d, n, k, capacity):
+    """The host build's plan of a launch: (chunk_waves, chunks); chunk_waves
+    0 is the global branch."""
+    out = (ctypes.c_longlong * 8)()
+    lib.mirbft_quorum_plan(*(ctypes.c_longlong(v) for v in (w, d, n, k, capacity)), out)
+    return out[1], out[2]
+
+
+def _waves_stream(w, d, k, waves):
+    """Hand-written waves [(source, [(slot, digest), ...])], duplicates and
+    out-of-range indices allowed, packed to K touches from zero state."""
+    n = len(waves)
+    sources = np.array([src for src, _ in waves], dtype=np.int32)
+    touches = np.zeros((n, k, 2), dtype=np.int32)
+    valid = np.zeros((n, k), dtype=bool)
+    for i, (_, rows) in enumerate(waves):
+        for j, row in enumerate(rows):
+            touches[i, j], valid[i, j] = row, True
+    return (np.zeros((w, d, 8), np.uint32), np.zeros((w, d), np.int32),
+            sources, touches, valid)
+
+
+def _small_table_case(case):
+    """(stream, capacity, expected (chunk_waves, chunks) or None)."""
+    rng = np.random.default_rng(11)
+    if case == "overflow_chunks":
+        # ~96 distinct rows over 40 waves of 4: ten chunks of four waves.
+        waves = random_stream(rng, n_waves=40, n_nodes=256, w=32, d=3, k=4)
+        stream = (np.zeros((32, 3, 8), np.uint32), np.zeros((32, 3), np.int32),
+                  *port.pack_wave_stream(waves, 4))
+        return stream, SMALL_CAPACITY, (4, 10)
+    if case == "one_wave_chunks":
+        waves = random_stream(rng, n_waves=30, n_nodes=64, w=8, d=2, k=6)
+        stream = (np.zeros((8, 2, 8), np.uint32), np.zeros((8, 2), np.int32),
+                  *port.pack_wave_stream(waves, 6))
+        return stream, 6, (1, 30)
+    if case == "block_waves":
+        # 32 < K: a block a wave, three phases and shared atomics.
+        waves = random_stream(rng, n_waves=12, n_nodes=256, w=32, d=3, k=40)
+        stream = (np.zeros((32, 3, 8), np.uint32), np.zeros((32, 3), np.int32),
+                  *port.pack_wave_stream(waves, 40))
+        return stream, 128, (3, 4)
+    if case == "wide_wave_global":
+        waves = random_stream(rng, n_waves=12, n_nodes=256, w=16, d=2, k=24)
+        stream = (np.zeros((16, 2, 8), np.uint32), np.zeros((16, 2), np.int32),
+                  *port.pack_wave_stream(waves, 24))
+        return stream, SMALL_CAPACITY, (0, 0)
+    if case.startswith("clamped_shares_row"):
+        # Slot W and W + 1 read row W - 1 (slot -1 writes it) and write
+        # nothing, in the wave of an in-range write to it and in later ones.
+        w, d = 4, 2
+        stream = _waves_stream(w, d, 4, [
+            (33, [(w, 1), (3, 1), (0, 0)]),
+            (5, [(3, 1), (w + 1, 1), (-1, 1), (w, 1)]),
+            (33, [(w, 1), (3, 1)]),
+            (70, [(w + 3, -1), (-1, 1)]),
+            (5, [(w, 1)]),
+        ])
+        capacity = 4 if case.endswith("one_wave_chunks") else SMALL_CAPACITY
+        return stream, capacity, (1, 5) if capacity == 4 else (4, 2)
+    if case == "probe_wraps":
+        # Three rows hash to the table's last slot (the kernel's hash:
+        # key x 2654435761 mod 2^32, top 5 bits of 32 slots), so their
+        # probes wrap to slots 0 and 1, which other rows want too.
+        w, d = 64, 4
+        slot = [((key * 2654435761) % 2**32) >> 27 for key in range(w * d)]
+        last = [key for key in range(w * d) if slot[key] == 31][:3]
+        first = [key for key in range(w * d) if slot[key] in (0, 1)][:4]
+        rows = [divmod(key, d) for key in last + first]
+        stream = _waves_stream(w, d, 16, [(3, rows), (4, rows[::-1]), (3, rows[2:])])
+        return stream, SMALL_CAPACITY, (1, 3)
+    if case == "quiet_chunks":
+        # Chunks where no touch may write (invalid, gated shut, or out of
+        # range for writing) between chunks that write: the first chunk's
+        # newbits still come from its gates and bits.
+        w, d = 4, 2
+        stream = _waves_stream(w, d, 4, [
+            (33, [(w, 1), (w + 2, 0)]),
+            (2, [(0, 0), (3, 1)]),
+            (33, [(3, 1), (1, 0)]),
+            (2, [(w, 1)]),
+        ])
+        stream[4][1] = False  # wave 1 invalid: chunk 0 (waves 0-1) cannot write
+        return stream, 8, (2, 2)
+    if case == "duplicates":
+        stream = _waves_stream(4, 2, 4, [
+            (7, [(1, 1), (1, 1), (2, 0), (1, 1)]),
+            (7, [(1, 1), (2, 0), (2, 0)]),
+            (8, [(2, 0), (2, 0), (-3, 0), (1, -1)]),
+        ])
+        return stream, SMALL_CAPACITY, (3, 1)
+    if case == "sources_past_256":
+        # Word 9 and -9 read words 7 and 0 and write no mask; counts grow.
+        stream = _waves_stream(4, 2, 4, [
+            (40, [(0, 0), (1, 1)]),
+            (300, [(0, 0), (1, 1), (3, 0)]),
+            (300, [(0, 0)]),
+            (-260, [(1, 1), (0, 0)]),
+            (-1, [(0, 0)]),
+            (511, [(0, 0), (1, 1)]),
+        ])
+        return stream, 8, (2, 3)
+    raise KeyError(case)
+
+
+SMALL_TABLE_CASES = ["overflow_chunks", "one_wave_chunks", "block_waves", "wide_wave_global",
+                     "clamped_shares_row", "clamped_shares_row_one_wave_chunks",
+                     "probe_wraps", "quiet_chunks", "duplicates", "sources_past_256"]
+
+
+@pytest.mark.parametrize("case", SMALL_TABLE_CASES)
+def test_staged_kernel_at_a_small_table_follows_the_jax_program(case, host_build):
+    stream, capacity, plan = _small_table_case(case)
+    masks, counts, _, touches, valid = stream
+    assert _plan(host_build, *masks.shape[:2], *valid.shape, capacity) == plan
+    want = _jax(*stream)
+    for direct_rows in (CARD_DIRECT_ROWS, 0):  # the direct map, then the hash table
+        _assert_same(_host(host_build, *stream, capacity=capacity, direct_rows=direct_rows), want)
+    _assert_same(_port(*stream), want)
+    got_masks, got_counts, posts, newbits = want
+    if case == "sources_past_256":
+        # Only source 40 (word 1) and -1 (word 7) set bits; counts grew by
+        # every new touch: 300 twice (word 7 still clear), -260 and -1 at
+        # (0, 0), but not 511, whose bit 31 of word 7 -1 had set.
+        assert got_counts[0, 0] == 5 and got_counts[1, 1] == 4
+        assert newbits[2, 0] and not newbits[5, 0] and newbits[5, 1]
+        assert (got_masks[0, 0] == [0, 1 << 8, 0, 0, 0, 0, 0, 1 << 31]).all()
+    elif case == "duplicates":
+        assert newbits[0, :2].all() and newbits[0, 3] and posts[0, 0] == 3
+    elif case.startswith("clamped_shares_row"):
+        # Row (3, 1)'s count is the clamped touches' post in every wave.
+        assert (posts[valid & (touches[..., 0] >= 4)] > 0).all()
+
+
+@pytest.mark.parametrize("capacity,k", [(1, 8), (8, 8), (40, 8), (200, 8), (80, 40)],
+                         ids=["1", "8", "40", "200", "k40-80"])
+def test_staged_kernel_chunks_a_gated_stream_like_the_plain_version(capacity, k, host_build):
+    """A gated stream (claims that match and do not, group tags with -1,
+    indices and sources out of range) at table capacities that run it in
+    one chunk a wave, several or one, or (K > capacity) on the global
+    branch, with a warp a wave (K = 8) or a block (K = 40), held to the
+    plain version and to the JAX program fed the JAX gate."""
+    import jax.numpy as jnp
+
+    n = 24
+    (stream, gate), tensors = _gate_inputs(5, n=n, k=k, w=6, d=2, p=5, b=12)
+    chunk_waves, _ = _plan(host_build, 6, 2, n, k, capacity)
+    assert chunk_waves == (0 if capacity < k else min(n, capacity // k))
+    want = port.quorum_accumulate_torch(*tensors[:5], tuple(tensors[5:]))
+    want = (want[0].numpy().view(np.uint32), *(t.numpy() for t in want[1:]))
+    assert 0 < int(want[3].sum()) < want[3].size
+    assert (gate[4] == -1).any() and (gate[5] == -1).any()
+    for direct_rows in (CARD_DIRECT_ROWS, 0):  # the direct map, then the hash table
+        _assert_same(_host(host_build, *stream, gate=gate, capacity=capacity,
+                           direct_rows=direct_rows), want)
+    # The JAX program's gate (``_fused_body``'s) on the same tables.
+    prev, digests, rows, claimed, row_groups, groups = (jnp.asarray(a) for a in gate)
+    combined = jnp.concatenate([prev, digests], axis=0)
+    picked = jnp.clip(rows, 0, combined.shape[0] - 1)
+    eq = jnp.all(combined[picked] == claimed, axis=-1)
+    gated = np.asarray(jnp.asarray(stream[4]) & ((rows < 0) | (eq & (row_groups[picked] == groups))))
+    _assert_same(_jax(*stream[:4], gated), want)
