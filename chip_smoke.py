@@ -76,7 +76,30 @@ Phases (any failure raises, and the script exits nonzero without a result):
             counted.  Every kernel's launch count is set to 0 just before each device
             run and read just after; each run must launch exactly the kernels
             its waves resolve to.
-6. report   the kernels' times at the shapes those runs launched, one JSON
+6. fast     the native engine (testengine.FastRecording, _native/
+            fastengine.cpp built by g++ beside the nvcc builds) on bench.py's
+            fast rows: c3_64n_fast (c3's shape, pipeline=True, the device
+            hash mirror: every device digest checked against the engine's)
+            host path, device, device, host path and a traced device run;
+            c3_64n_fast_auth (device_authoritative: the card produces the
+            digests, the engine pauses for them), one device run, which
+            must hash no more on the host than the mirror run;
+            c2_16n_signed_fast (c2's shape, all 800 verdicts from one verify
+            wave of 1,024 rows before the run) host path, device, host path
+            and a traced device run (in a process of its own, `chip_smoke.py
+            --traced-fast NAME`, as c3_64n_fast's is: in the smoke's process
+            torch.profiler dropped fast runs' first device records; a trace
+            that lost a launch is taken again, up to three times);
+            c2_16n_signed_fast_streaming (verdicts from several lookahead
+            waves during the run), one device run; and
+            4n_signed_corrupt_fast (waves of 16, client 3 corrupt), one
+            device run whose corrupt row the kernel rejects.  Each run is
+            held to the host-path fingerprint of its Recording path (c3_auto,
+            c2_signed, 4n_signed_corrupt) and commits every honest request
+            on every node; each device run launches exactly the kernels its
+            waves resolve to.  A FastEngineUnsupported or a diverged digest
+            fails the smoke: nothing falls back to the Python engine.
+7. report   the kernels' times at the shapes those runs launched, one JSON
             line {"kernels": [...]}, the nvidia-smi line, and last the JSON
             device line.
 
@@ -205,6 +228,14 @@ VERIFY_SERIAL_MULS = 5 + 256 * 4 + 265 + 1
 QUORUM_SHAPES = ((4096, 4, 8, 8), (4096, 4, 64, 8), (4096, 4, 64, 40), (4096, 4, 512, 40),
                  (4096, 4, 2, 4160), (8192, 4, 64, 8))
 QUORUM_OPS_PER_TOUCH = 40
+# The fast-engine paths (drive_fast_paths): bench.py's c3_64n (bench.py:2305),
+# c3dev, c2_16n_signed (:2275) and c2s_16n_streaming (:2294) rows on the
+# native engine, FastRecording's defaults otherwise (hash waves of 64, the
+# 64-row batch bucket), and the 4-node corrupt-signer shape.  Each is held
+# to the host-path run of a Recording path.  Orders as above; H is
+# FastRecording(device=False), the engine's host path.
+C3_FAST_ORDER = "HDDHP"
+C2_FAST_ORDER = "HDHP"
 # The fused bench wave (bench.py bench_fused_pipeline) and the signed rows
 # of c2's verify wave that ride it in the signed case.
 FUSED_BATCH, FUSED_MSG_LEN, FUSED_DEPTH = 4096, 640, 20
@@ -280,10 +311,10 @@ def chain_of(ms, n_blocks_np, L, clock):
     """(cycles_per_round, chain_floor_ms) of one launch: the kernel's time
     over the rounds of the wave's longest message, and the least time those
     rounds' dependent chain takes.  ``clock`` is (SM Hz, cycles per
-    dependent instruction)."""
+    dependent instruction, ...)."""
     import numpy as np
 
-    hz, latency = clock
+    hz, latency = clock[:2]
     rounds = int(np.minimum(n_blocks_np.astype(np.int64), L).max()) * 64
     if rounds == 0:
         return float("nan"), 0.0
@@ -512,6 +543,15 @@ def verify_bound(rows, hz):
     ops_s = rows * IMAD_PER_VERIFY / (132 * IMAD_LANES_PER_SM * hz)
     bytes_s = rows * VERIFY_BYTES_PER_ROW / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def verify_issue_bound(rows, clock):
+    """A verify launch's floor at the measured issue rate of IMAD.WIDE, the
+    instruction that forms each 32 x 32 -> 64-bit product: 4,375 x 72 wide
+    products a row, 32 a warp instruction, each instruction ``clock[2]``
+    issue cycles, over the card's 528 schedulers at the sampled SM clock."""
+    warp_instructions = rows * 4375 * 72 / 32
+    return warp_instructions * clock[2] / (132 * 4 * clock[0]) * 1e3
 
 
 def cycles_per_mul(ms, clock):
@@ -1174,12 +1214,17 @@ def run_spec(spec, profile=None):
     if profile is not None:
         prof.export_chrome_trace(profile)
     finals = tuple((n.state.checkpoint_seq_no, n.state.checkpoint_hash) for n in recording.nodes)
+    check_checkpoints(finals)
+    return recording, steps, finals, wall, metrics.snapshot()
+
+
+def check_checkpoints(finals):
+    """No two nodes hold different checkpoints at one sequence number."""
     by_seq = {}
     for seq, digest in finals:
         by_seq.setdefault(seq, set()).add(digest)
     if any(len(d) != 1 for d in by_seq.values()):
         raise AssertionError("divergent checkpoint")
-    return recording, steps, finals, wall, metrics.snapshot()
 
 
 def device_busy(trace_path):
@@ -1398,11 +1443,259 @@ def drive_paths():
             log(f"path {name} walls in order {order.replace('P', '')}: host {walls['H']} "
                 f"device {walls['D']}; mean device/host {dev_s / host_s:.4f}")
         results[name] = (path_launches, waves, verify_inputs, quorum_inputs)
+    return results, host_fps
+
+
+def run_fast(spec, profile=None, **kwargs):
+    """Build and drain one FastRecording of ``spec`` on the card (timed
+    together: the verdict pass runs at construction); with ``profile``,
+    under torch.profiler, its Chrome trace written there."""
+    from mirbft_tpu_torch import metrics
+    from mirbft_tpu_torch.testengine import FastRecording
+
+    metrics.default_registry.reset()
+    if profile is None:
+        start = time.perf_counter()
+        recording = FastRecording(spec, torch_device=DEVICE, **kwargs)
+        steps = recording.drain_clients(timeout=100_000_000)
+    else:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as trace
+
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            recording = FastRecording(spec, torch_device=DEVICE, **kwargs)
+            steps = recording.drain_clients(timeout=100_000_000)
+            torch_sync()
+    torch_sync()
+    wall = time.perf_counter() - start
+    if profile is not None:
+        prof.export_chrome_trace(profile)
+    finals = tuple((n.checkpoint_seq_no, n.checkpoint_hash) for n in recording.nodes)
+    check_checkpoints(finals)
+    return recording, steps, finals, wall, metrics.snapshot()
+
+
+# The traced runs a fast path may take to get a trace that lost no launch.
+TRACE_ATTEMPTS = 3
+
+
+def fast_paths():
+    """name -> (Spec shape, FastRecording keywords, run order, Spec tweak,
+    the Recording path whose host-path run it is held to)."""
+    auth_wave = C2_PLANE["auth_wave"]
+    return {
+        "c3_64n_fast": (C3, dict(pipeline=True), C3_FAST_ORDER, None, "c3_auto"),
+        "c3_64n_fast_auth": (C3, dict(pipeline=True, device_authoritative=True), "D", None,
+                             "c3_auto"),
+        "c2_16n_signed_fast": (C2, dict(auth_wave=auth_wave), C2_FAST_ORDER, None,
+                               "c2_signed"),
+        "c2_16n_signed_fast_streaming": (
+            C2, dict(auth_wave=auth_wave, streaming_auth=True), "D", None, "c2_signed"),
+        "4n_signed_corrupt_fast": (
+            SMALL_SIGNED, dict(auth_wave=SMALL_SIGNED_PLANE["auth_wave"]), "D",
+            corrupt_signer, "4n_signed_corrupt"),
+    }
+
+
+def fast_device_run(name, profile=None):
+    """One device run of fast path ``name`` (traced into ``profile`` when
+    given).  Returns what drive_fast_paths checks and logs, as JSON-ready
+    data, and the hash waves and verify inputs the report times."""
+    from mirbft_tpu_torch.ops.crossover import measure_hash_probe
+    from mirbft_tpu_torch.testengine import Spec
+
+    shape, keywords, _, tweak, _ = fast_paths()[name]
+    reset_launches()
+    probes = measure_hash_probe.cache_info().misses
+    with WaveLog() as waves, VerifyLog() as verify, SignClock() as signing:
+        recording, steps, finals, wall, snap = run_fast(
+            Spec(**shape, tweak_recorder=tweak), profile=profile, device=True, **keywords)
+    screened = rejected = 0
+    for valid, ok in verify.verdicts:
+        screened += int((~valid).sum())
+        rejected += int((valid & ~ok).sum())
+    run = {
+        "steps": steps,
+        "finals": [[seq, digest.hex()] for seq, digest in finals],
+        "wall": wall,
+        "launches": read_launches(),
+        "resolved": sorted({f"sha256_{layout}" for layout, _ in waves.waves}
+                           | ({"ed25519_verify"} if verify.waves else set())),
+        "probes": measure_hash_probe.cache_info().misses - probes,
+        "committed": [{str(c): n for c, n in node.committed_reqs.items()}
+                      for node in recording.nodes],
+        "device_stall_s": recording.device_stall_s,
+        "host_crypto_seconds": recording.host_crypto_seconds(),
+        "engine_hash_s": recording._engine.stats()[3],
+        "signing_s": signing.seconds,
+        "screened": screened,
+        "rejected": rejected,
+        "verify_waves": verify.waves,
+        "hash_waves": {f"{k[0]}{list(k[1])}": v[0] for k, v in waves.waves.items()},
+    }
+    for key in ("device_hash_dispatches", "device_hashed_messages", "device_verify_dispatches",
+                "device_verified_signatures", "device_wait_seconds_sum",
+                "device_wait_seconds_count"):
+        run[key] = snap.get(key, 0)
+    return run, waves.waves, verify.inputs
+
+
+def traced_fast_child(name):
+    """``chip_smoke.py --traced-fast NAME``: one traced device run of a fast
+    path, in a process of its own, its busy time read from the trace; the
+    run's data on the last line.  In the smoke's own process, after its
+    earlier phases, torch.profiler dropped the first device records of
+    most traced fast runs (their launches' runtime calls were in the
+    trace); a fresh process's traces have kept them."""
+    from mirbft_tpu_torch import _native
+    from mirbft_tpu_torch.ops.crossover import hash_crossover_batch
+
+    if _native.load_fast() is None:
+        raise AssertionError("the fast engine is not built")
+    hash_crossover_batch("cuda")  # TorchHasher's probe, outside the window
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    profile = os.path.join(out_dir, f"trace_{name}.json")
+    run, _, _ = fast_device_run(name, profile=profile)
+    run["busy"], run["events"], _ = device_busy(profile)
+    print(json.dumps(run), flush=True)
+    return 0
+
+
+def traced_in_child(name):
+    """traced_fast_child's data, from a child process."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--traced-fast", name],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+    )
+    if out.returncode != 0:
+        raise AssertionError(f"{name}: the traced run failed: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def drive_fast_paths(host_fps):
+    """Phase 6: the native engine's paths, each run held to the
+    host-path fingerprint of its Recording path in ``host_fps``.  The mirror
+    waves' digests are checked against the engine's by FastRecording
+    itself; every device run must launch exactly the kernels its waves
+    resolved to.  Returns per-path launches, hash waves and verify waves,
+    as drive_paths does."""
+    from mirbft_tpu_torch.testengine import Spec
+
+    results, mirror_hash_s = {}, None
+    for name, (shape, keywords, order, tweak, held_to) in fast_paths().items():
+        signed = shape.get("signed_requests", False)
+        corrupt = CORRUPT_CLIENT if tweak is not None else None
+        target = {c: 0 if c == corrupt else shape["reqs_per_client"]
+                  for c in range(shape["client_count"])}
+        unique = sum(target.values())
+        host_fp = host_fps[held_to]
+        walls, path_launches, waves, verify_inputs = {"H": [], "D": []}, None, None, None
+        kinds = list(order)
+        # A traced run whose trace lost a launch appends another (the loop
+        # reaches what is appended to the list it walks).
+        for index, kind in enumerate(kinds):
+            if kind == "H":
+                recording, steps, finals, wall, _ = run_fast(
+                    Spec(**shape, tweak_recorder=tweak), pipeline=keywords.get("pipeline"))
+                if (steps, finals) != host_fp:
+                    raise AssertionError(f"{name}: host-path run diverged from {held_to}'s")
+                walls["H"].append(wall)
+                log(f"fast {name} run {index} host path: steps={steps} (== {held_to}) "
+                    f"wall_s={wall:.6f} unique_req_per_s={unique / wall:.1f} "
+                    f"host_crypto_seconds={recording.host_crypto_seconds():.6f} "
+                    f"engine_hash_s={recording._engine.stats()[3]:.6f}")
+                continue
+            if kind == "P":
+                run = traced_in_child(name)
+            else:
+                run, run_waves, run_inputs = fast_device_run(name)
+            steps, wall, launches = run["steps"], run["wall"], run["launches"]
+            finals = tuple((seq, bytes.fromhex(digest)) for seq, digest in run["finals"])
+            if (steps, finals) != host_fp:
+                raise AssertionError(f"{name}: device run diverged from {held_to}'s host path")
+            for node in run["committed"]:
+                got = {c: node.get(str(c), 0) for c in target}
+                if got != target:
+                    raise AssertionError(f"{name}: a node committed {got}, not {target}")
+            dispatches = run["device_hash_dispatches"]
+            verifies = run["device_verify_dispatches"]
+            if not signed and dispatches <= 0:
+                raise AssertionError(f"{name}: no device hash wave launched")
+            if keywords.get("device_authoritative"):
+                if mirror_hash_s is None or run["engine_hash_s"] > mirror_hash_s:
+                    raise AssertionError(
+                        f"{name}: the engine hashed {run['engine_hash_s']} s on the host, "
+                        f"the mirror run {mirror_hash_s} s")
+            elif not signed:
+                mirror_hash_s = run["engine_hash_s"]
+            if signed:
+                # Bitmap mode verifies every signed row (the corrupt
+                # signer's too) before the run, in waves of auth_wave;
+                # streaming mode in several lookahead passes.  Each
+                # dispatch launches the kernel once.
+                rows = shape["client_count"] * shape["reqs_per_client"]
+                want = -(-rows // keywords["auth_wave"])
+                if (verifies <= 1 if keywords.get("streaming_auth") else verifies != want) \
+                        or launches["ed25519_verify"] != verifies:
+                    raise AssertionError(
+                        f"{name}: {verifies} verify dispatches ({want} waves of the pre-run "
+                        f"pass) and {launches['ed25519_verify']} kernel launches")
+                if corrupt is not None and run["rejected"] < 1:
+                    raise AssertionError(f"{name}: no corrupt row reached the kernel")
+            for kernel, count in launches.items():
+                if (count > 0) != (kernel in run["resolved"]):
+                    raise AssertionError(f"{name}: {kernel} launched {count} times")
+            if path_launches is None:
+                path_launches, waves, verify_inputs = launches, run_waves, run_inputs
+            elif launches != path_launches:
+                raise AssertionError(f"{name}: launches {launches} != {path_launches}")
+            head = (f"fast {name} run {index} device run"
+                    f"{' under torch.profiler, in a process of its own' if kind == 'P' else ''}: "
+                    f"steps={steps} (== {held_to}) wall_s={wall:.6f} "
+                    f"unique_req_per_s={unique / wall:.1f} committed={target} on every node "
+                    f"device_stall_s={run['device_stall_s']:.6f} "
+                    f"device_wait_seconds_sum={run['device_wait_seconds_sum']:.6f} "
+                    f"device_wait_seconds_count={int(run['device_wait_seconds_count'])} "
+                    f"host_crypto_seconds={run['host_crypto_seconds']:.6f} "
+                    f"engine_hash_s={run['engine_hash_s']:.6f} "
+                    f"crossover_probes_in_window={run['probes']}")
+            if kind == "P":
+                busy, names = run["busy"], run["events"]
+                lost = {k: n for k, n in launches.items()
+                        if sum(c for event, c in names.items() if k in event) < n}
+                if lost:
+                    log(f"{head}; the trace lost launches of {lost}: idle share not "
+                        f"measured; device_events={names}")
+                    if kinds.count("P") < TRACE_ATTEMPTS:
+                        kinds.append("P")
+                else:
+                    log(f"{head} device_busy_s={busy:.9f} idle_share={1 - busy / wall:.9f} "
+                        f"device_events={names}")
+                continue
+            walls["D"].append(wall)
+            log(head)
+            log(f"fast {name} run {index} traffic: device_hash_dispatches={dispatches} "
+                f"device_hashed_messages={run['device_hashed_messages']} "
+                f"device_verify_dispatches={verifies} "
+                f"device_verified_signatures={run['device_verified_signatures']} "
+                f"verify waves (rows, real rows)={run['verify_waves']} launches={launches} "
+                f"hash waves={run['hash_waves']}"
+                + (f" signing_s={run['signing_s']:.3f}" if signed else ""))
+            if signed:
+                log(f"fast {name} run {index} verdicts: real rows the host screen rejected="
+                    f"{run['screened']} real rows the kernel rejected={run['rejected']}")
+        if walls["H"] and walls["D"]:
+            host_s, dev_s = (sum(w) / len(w) for w in (walls["H"], walls["D"]))
+            log(f"fast {name} walls in order {order.replace('P', '')}: host {walls['H']} "
+                f"device {walls['D']}; mean device/host {dev_s / host_s:.4f}")
+        results[name] = (path_launches, waves, verify_inputs, None)
     return results
 
 
 def report(paths, worst, clock):
-    """Phase 6: time each kernel on the inputs its paths launched it on."""
+    """Phase 7: time each kernel on the inputs its paths launched it on."""
     import numpy as np
 
     from mirbft_tpu_torch.ops.crossover import time_cuda
@@ -1477,7 +1770,8 @@ def report_ed25519(paths, worst, clock):
     launches = sum(entry[0][name] for entry in paths.values())
     if launches <= 0:
         raise AssertionError(f"{name} was launched on no path")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0, "bytes": 0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "issue_bound_ms": 0.0, "ops": 0,
+           "bytes": 0}
     n = 0
     for path, (_, _, inputs, _) in paths.items():
         for rows, (count, packed) in (inputs or {}).items():
@@ -1491,13 +1785,16 @@ def report_ed25519(paths, worst, clock):
             ms = time_cuda(lambda: e.ed25519_verify_kernel(*tensors), repeats=5) * 1e3
             plain_ms = time_plain(lambda: e.verify_torch(*tensors)) * 1e3
             bound_ms, by = verify_bound(rows, clock[0])
+            issue_ms = verify_issue_bound(rows, clock)
             log(f"path-wave {path} {name} rows={rows} valid_rows={int(packed[5].sum())} "
                 f"launches={count} ms={ms:.6f} plain_ms={plain_ms:.3f} "
                 f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f} "
+                f"imad_wide_issue_bound_ms={issue_ms:.6f} "
                 f"cycles_per_mul={cycles_per_mul(ms, clock):.1f}")
             tot["ms"] += count * ms
             tot["plain_ms"] += count * plain_ms
             tot["bound_ms"] += count * bound_ms
+            tot["issue_bound_ms"] += count * issue_ms
             tot["ops" if by == "operations" else "bytes"] += count
             n += count
     return {
@@ -1513,6 +1810,7 @@ def report_ed25519(paths, worst, clock):
         "bound_ms": tot["bound_ms"] / n,
         "bound_by": "operations" if tot["ops"] >= tot["bytes"] else "bytes",
         "library_ms": None,
+        "imad_wide_issue_bound_ms": tot["issue_bound_ms"] / n,
     }
 
 
@@ -1575,6 +1873,8 @@ def report_quorum(paths, worst):
 
 def main() -> int:
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--traced-fast"]:
+        return traced_fast_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -1598,9 +1898,27 @@ def main() -> int:
 
     log(f"native ack/vote planes (g++ build of _native/ackplane.cpp): "
         f"{'loaded' if _native.available else 'unavailable, pure-Python planes'}")
+    # The fast engine's g++ build (~35 s) runs beside the nvcc builds, and
+    # before any timed window.
+    import threading
+
+    fast_build = {}
+
+    def build_fast():
+        begin = time.perf_counter()
+        fast_build["module"] = _native.load_fast()
+        fast_build["seconds"] = time.perf_counter() - begin
+
+    build_thread = threading.Thread(target=build_fast)
     start = time.perf_counter()
+    build_thread.start()
     seconds = _build.build_all()
+    build_thread.join()
     log(f"build: {seconds} wall_s={time.perf_counter() - start:.2f}")
+    if fast_build["module"] is None:
+        raise AssertionError("g++ could not build the fast engine (_native/fastengine.cpp)")
+    log(f"fast engine: g++ build of _native/fastengine.cpp loaded as "
+        f"{fast_build['module'].__name__} in {fast_build['seconds']:.2f} s")
     log(_build.ptxas_report("sha256").strip())
     log(_build.ptxas_report("ed25519").strip())
     log(_build.ptxas_report("quorum").strip())
@@ -1633,14 +1951,16 @@ def main() -> int:
     from mirbft_tpu_torch.ops import latency_probe
 
     latency, probe_hz = latency_probe.dependent_issue_latency()
-    clock = (sm_clock_hz(), latency)
+    issue = {op: latency_probe.issue_cycles(op) for op in latency_probe.ISSUE_OPS}
+    # (SM Hz, cycles per dependent instruction, issue cycles of IMAD.WIDE)
+    clock = (sm_clock_hz(), latency, issue["IMAD.WIDE"])
     log(f"clock: sm_clock_mhz={clock[0] / 1e6:.0f} (nvidia-smi clocks.sm during a spin "
         f"kernel) dependent_issue_latency_cycles={latency:.4f} (SHF/LOP3/add chain, "
         f"csrc/latency_probe.cu) probe_clock_mhz={probe_hz / 1e6:.1f} "
         f"(clock64 over globaltimer) | {smi}")
     log("issue: cycles per warp instruction, one warp issuing independent "
         "instructions (pairs in turn): " + " ".join(
-            f"{op}={latency_probe.issue_cycles(op):.3f}" for op in latency_probe.ISSUE_OPS))
+            f"{op}={cycles:.3f}" for op, cycles in issue.items()))
     log(f"rounds: the kernels' round chain alone (csrc/sha256_round.cuh, one warp, "
         f"no ring): {latency_probe.round_cycles(1):.3f} cycles per round, one message "
         f"per lane; {latency_probe.round_cycles(2):.3f} per step of two interleaved")
@@ -1662,7 +1982,8 @@ def main() -> int:
     log(f"verify probe: vpu_s={measure_verify_probe('cuda')[0]:.9f} (256 zero rows); "
         f"auto resolves to vpu, the card's one verify kernel")
 
-    paths = drive_paths()
+    paths, host_fps = drive_paths()
+    paths.update(drive_fast_paths(host_fps))
     kernels = report(paths, worst, clock)
     log(json.dumps({"kernels": kernels}))
     log(smi)

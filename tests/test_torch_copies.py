@@ -37,9 +37,11 @@ VERBATIM = [
     "_native/__init__.py",
     "_native/ackplane.cpp",
     "_native/.gitignore",
+    "_native/fastengine.cpp",
     "ops/cpu.py",
     "testengine/queue.py",
     "testengine/sched.py",
+    "testengine/manglers.py",
 ] + [
     f"statemachine/{name}"
     for name in (
@@ -152,3 +154,40 @@ def test_host_side_of_the_fused_wave_is_copied(module):
         i = ref.index(start)
         block = ref[i:] if end is None else ref[i : ref.index(end, i)]
         assert len(block) > 300 and block.rstrip() in port, (module, start)
+
+
+# The reference's testengine/fastengine.py, from its imports to its end, in
+# blocks that the port carries unchanged.  Between them lie the device
+# hooks: the torch_device keyword and its default, the verifier
+# (_make_verifier: mesh raises) and the two lazy hashers (TorchHasher).
+FASTENGINE_BLOCKS = [
+    ("from __future__ import annotations", '    ):\n        """``device_authoritative``'),
+    ('        """``device_authoritative``', '"""\n        _require(_native.load_fast()'),
+    ("        _require(_native.load_fast()", "        self._py_crypto_s = 0.0"),
+    ("        self._py_crypto_s = 0.0", "    def _make_verifier(self):"),
+    ("\n\n    def _device_verdicts(", "            from ..ops.sha256 import TpuHasher"),
+    ("        for message, digest in log:", "                from ..ops.sha256 import TpuHasher"),
+    ("            host_side: List[bytes] = []", None),
+]
+
+
+def test_fast_engine_wrapper_is_the_reference_outside_its_device_hooks():
+    ref = _rewrite(_read(REF, "testengine/fastengine.py"))
+    port = _read(PORT, "testengine/fastengine.py")
+    covered_to = ref.index(FASTENGINE_BLOCKS[0][0])
+    gaps = []
+    for start, end in FASTENGINE_BLOCKS:
+        i = ref.index(start, covered_to)
+        gaps.append(ref[covered_to:i])
+        j = len(ref) if end is None else ref.index(end, i)
+        block = ref[i:j]
+        assert len(block) > 300 and block in port, start
+        covered_to = j
+    assert covered_to == len(ref)
+    # What the blocks leave out is the hooks and nothing else: the ends of
+    # the signature and of its docstring (torch_device goes before each),
+    # the verifier and the two hashers.
+    hooks = [gap for gap in gaps if gap]
+    assert hooks[:2] == ["    ):\n", '"""\n'] and len(hooks) == 5
+    assert "mesh" in hooks[2] and hooks[2].count("\n") < 16
+    assert all("TpuHasher" in gap and gap.count("\n") < 5 for gap in hooks[3:])

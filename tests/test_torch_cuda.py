@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain twin and
-hashlib or ``verify_one``, and the device hash plane end to end.
+hashlib or ``verify_one``, the device hash plane end to end, and the native
+fast engine's hash and verdict waves.
 
 Marked ``cuda`` and skipped where no card is present (a fixture decides, at
 run time).  On the machine with the card, where the JAX package is not
@@ -287,3 +288,66 @@ def test_fused_wave_on_the_card():
     dm, dc = scan.quorum_state()
     assert (dm == rm2).all() and (dc == rc2).all()
     assert scan.collect(h2).digests == d1[:5] and h2.lease is None and h1.lease is None
+
+
+def _fast_run(spec, **kwargs):
+    """Drain a FastRecording of ``spec`` on the card; returns its steps and
+    per-node (checkpoint, active hash, committed requests)."""
+    import fcntl
+
+    from mirbft_tpu_torch import _native
+    from mirbft_tpu_torch.testengine import FastRecording
+
+    with open(_native._FAST_SRC, "rb") as source:
+        fcntl.flock(source, fcntl.LOCK_EX)
+        assert _native.load_fast() is not None
+    fast = FastRecording(spec, torch_device="cuda", **kwargs)
+    steps = fast.drain_clients(timeout=10_000_000)
+    state = [(n.checkpoint_seq_no, n.checkpoint_hash, n.active_hash_digest,
+              dict(n.committed_reqs)) for n in fast.nodes]
+    return steps, state, fast
+
+
+def _hash_launches():
+    return sha256_batch.launches + sha256_lanes.launches
+
+
+@pytest.mark.parametrize("authoritative", [False, True], ids=["mirror", "authoritative"])
+def test_fast_engine_hash_waves_on_the_card(authoritative):
+    """The native engine's 4-node run with its hash waves on the card (the
+    mirror, every digest checked against the engine's; or authoritative,
+    the card producing them) equals its host path, one kernel launch a
+    dispatch."""
+    from mirbft_tpu_torch.testengine import Spec
+
+    spec = Spec(node_count=4, client_count=4, reqs_per_client=20, batch_size=5)
+    host_steps, host_state, host = _fast_run(spec)
+    metrics.default_registry.reset()
+    before = _hash_launches()
+    steps, state, fast = _fast_run(spec, device=True, pipeline=True,
+                                   device_authoritative=authoritative)
+    dispatches = metrics.counter("device_hash_dispatches").value
+    assert (steps, state) == (host_steps, host_state)
+    assert dispatches > 0 and _hash_launches() - before == dispatches
+    if authoritative:
+        assert fast._engine.stats()[3] <= host._engine.stats()[3]
+
+
+def test_fast_engine_streaming_verdicts_on_the_card():
+    """Streaming verdict waves equal the pre-run bitmap pass, more than one
+    verify launch, and the corrupt signer commits nothing."""
+    from mirbft_tpu_torch.testengine import Spec
+
+    def corrupt(recorder):
+        recorder.client_configs[1].corrupt = True
+
+    spec = Spec(node_count=4, client_count=2, reqs_per_client=40, batch_size=5,
+                signed_requests=True, tweak_recorder=corrupt)
+    bitmap_steps, bitmap_state, _ = _fast_run(spec, device=True, auth_wave=64)
+    metrics.default_registry.reset()
+    before = ed25519.ed25519_verify_kernel.launches
+    steps, state, _ = _fast_run(spec, device=True, streaming_auth=True, auth_wave=64)
+    dispatches = metrics.counter("device_verify_dispatches").value
+    assert (steps, state) == (bitmap_steps, bitmap_state)
+    assert dispatches > 1 and ed25519.ed25519_verify_kernel.launches - before == dispatches
+    assert all(node[3].get(1, 0) == 0 and node[3].get(0, 0) == 40 for node in state)

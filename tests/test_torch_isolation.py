@@ -6,8 +6,9 @@ One subprocess makes both unimportable (``sys.modules[name] = None``),
 imports every module of the port and runs the 4-node recording with the
 device hash plane on the CPU twins, then a signed 4-node recording with
 the device auth plane on the Ed25519 twin, then the 4-node recording
-through the fused pipeline and one quorum wave stream.  A text scan of the
-sources catches imports that the run does not reach.
+through the fused pipeline and one quorum wave stream.  A second
+subprocess runs a signed 4-node ``FastRecording`` on the twins.  A text
+scan of the sources catches imports that the run does not reach.
 """
 
 import os
@@ -75,6 +76,45 @@ def test_port_runs_with_jax_and_reference_unimportable():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "leaked []" in out.stdout, out.stdout
     assert "steps 746 signed_steps 1169 fused_steps 746" in out.stdout, out.stdout
+
+
+_FAST_CHILD = r"""
+import fcntl, sys
+sys.modules["jax"] = None
+sys.modules["mirbft_tpu"] = None
+from mirbft_tpu_torch import _native, metrics
+from mirbft_tpu_torch.testengine import FastRecording, Spec
+with open(_native._FAST_SRC, "rb") as source:
+    fcntl.flock(source, fcntl.LOCK_EX)
+    assert _native.load_fast() is not None
+spec = Spec(node_count=4, client_count=4, reqs_per_client=4, batch_size=2,
+            signed_requests=True)
+fast = FastRecording(spec, device=True, auth_wave=16, torch_device="cpu")
+fast_steps = fast.drain_clients(timeout=200_000)
+assert metrics.snapshot().get("device_verify_dispatches", 0) == 1
+steps = spec.recorder().recording().drain_clients(timeout=200_000)
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.") or m == "mirbft_tpu" or m.startswith("mirbft_tpu.")))
+print("fast_steps", fast_steps, "steps", steps, "leaked", leaked)
+"""
+
+
+def test_fast_engine_runs_with_jax_and_reference_unimportable():
+    """A signed 4-node FastRecording, its verdicts from one wave of the
+    Ed25519 twin, takes the steps of the port's Recording.  The child waits
+    on the lock the fast-engine tests take, so that the port's _fast.so
+    builds once."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", _FAST_CHILD],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "fast_steps 1169 steps 1169 leaked []" in out.stdout, out.stdout
 
 
 _JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
