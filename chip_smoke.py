@@ -2,6 +2,8 @@
 """Chip smoke for mirbft_tpu_torch: drive the port on one CUDA card and check it.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one H100
+    python3 chip_smoke.py --embedded 0.02,0.1 3   # phase 7's threaded nodes alone,
+                                                  # 3 runs at each tick, unchecked
 
 Phases (any failure raises, and the script exits nonzero without a result):
 
@@ -56,8 +58,8 @@ Phases (any failure raises, and the script exits nonzero without a result):
             requests, batch 100) with the device hash plane on kernel="auto",
             held to the port's host-path run of the same Spec (steps and
             per-node checkpoints), all 6,400 requests committed on every node,
-            no divergent checkpoint.  Its runs go host, device, device, host,
-            so neither side always runs second, and one more device run is
+            no divergent checkpoint.  Its runs go host, device, host, so
+            the device run sits between two host runs, and one more device run is
             traced with torch.profiler for the card's busy time.  Then two
             4-node Recordings pinned to kernel="lanes" and kernel="scan", each
             held to its host-path run.  The signed paths: c2_signed, bench.py's
@@ -99,7 +101,41 @@ Phases (any failure raises, and the script exits nonzero without a result):
             on every node; each device run launches exactly the kernels its
             waves resolve to.  A FastEngineUnsupported or a diverged digest
             fails the smoke: nothing falls back to the Python engine.
-7. report   the kernels' times at the shapes those runs launched, one JSON
+7. deploy   the deployment stack.  First the cohost plane
+            (groups.cohost.CohostCryptoPlane on the card) at bench.py's
+            anatomy shape (bench_cohost_fused: 2 groups x 96 rows of 608
+            bytes, one fixed wave of 192, six rounds): digests against
+            hashlib and two solo per-group fused pipelines on the same
+            rows, one tenant collecting on a thread of its own (every
+            thread must see the one default stream), with
+            fused_wave_occupancy, groups per wave and both wave times; one
+            mux wave carrying both tenants' 1,024 signatures from two auth
+            planes (group 0's client 3 a corrupt signer), each group's
+            verdicts against verify_torch on the card and every rejection in
+            group 0; and a 2-group gated quorum wave against its plain
+            version and host_fused_reference.  Then c2_signed's and c3's
+            Recordings as two co-hosted groups of one SharedWaveMux, stepped
+            in turns, each held to its phase-5 host-path fingerprint with an
+            exact launch set.  Then four threaded Nodes in this process
+            (durable WAL and request store, TorchHasher and an
+            Ed25519BatchVerifier on the card) committing c2's 800 signed
+            requests, one proposer thread, batch 100: every node's state
+            must hold every request, applied exactly once or carried by a
+            checkpoint it state-transferred to (as the reference's stress
+            test counts a transferred node), none applied twice, with
+            hashlib's batch digests, and the forgery rejected by the kernel
+            (at 16 proposer threads and batch 1 both packages' runtimes can
+            raise "must never commit during state transfer": node_load.py,
+            PERF.md section 7).  Last tools/mirnet.py's cohost
+            deployment (2 groups x 4 nodes, 200 requests a group: four host
+            processes, each with its own plane built on the card):
+            wave_mux_active = 1 on every host, the plane serving its hashes,
+            every batch digest of every commits.log recomputed with hashlib;
+            then its host twin with per-group CPU hashers; both walls.  At
+            mirnet's load the plane launches no wave (every row takes its
+            host fast path), so this part puts no kernel work on the card
+            and its launches are 0; the device counters are printed.
+8. report   the kernels' times at the shapes those runs launched, one JSON
             line {"kernels": [...]}, the nvidia-smi line, and last the JSON
             device line.
 
@@ -185,9 +221,9 @@ DEVICE = "cuda"
 C3 = dict(node_count=64, client_count=64, reqs_per_client=100, batch_size=100)
 C3_PLANE = dict(device=True, hash_wave=64, hash_floor=8, defer_unready=False)
 # Run orders (drive_paths): H host path, D device run, P device run traced.
-C3_ORDER = "HDDHP"
+C3_ORDER = "HDHP"
 C2_ORDER = "HDDHP"
-C3_FUSED_ORDER = "DD"
+C3_FUSED_ORDER = "D"
 C2_FUSED_ORDER = "DD"
 SMALL = dict(node_count=4, client_count=4, reqs_per_client=20, batch_size=5)
 SMALL_PLANE = dict(device=True, hash_wave=4, hash_floor=1, defer_unready=False)
@@ -1694,8 +1730,839 @@ def drive_fast_paths(host_fps):
     return results
 
 
+
+# Phase 7, deploy.  The cohost plane's wave at bench.py's anatomy shape
+# (bench_cohost_fused, bench.py:1893-1965): 2 groups x 96 rows of 608-byte
+# messages, one fixed wave of 192, six timed rounds; the signed mux wave's
+# 1,024 rows, split between the two tenants' auth planes (8 clients x 64
+# requests each, group 0's client 3 a corrupt signer); the mux Recordings'
+# shared wave, fixed at the planes' own hash_wave (at 192 neither c2's nor
+# c3's rows ever fill a wave, and every one is hashed on the host); the
+# embedded node runtime at c2's load (16 clients x
+# 50 signed requests on 4 threaded nodes); and the cohost deployment of
+# tools/mirnet.py (2 groups x 4 nodes, 200 requests a group).
+MUX_GROUPS, MUX_ROWS, MUX_MSG_LEN, MUX_ROUNDS = 2, 96, 608, 6
+MUX_SIGNED_CLIENTS, MUX_SIGNED_REQS = 8, 64
+MUX_REC_WAVE = C3_PLANE["hash_wave"]
+NODE_COUNT, NODE_CLIENTS, NODE_REQS, NODE_TICK, NODE_BATCH = 4, 16, 50, 0.02, 100
+COHOST = dict(groups=2, nodes_per_group=4, reqs_per_group=200, layout="cohost")
+
+
+def check_stream_shared():
+    """The cohost plane and the embedded nodes' hashers are called from
+    many threads, and a group's collect may run on another thread than its
+    dispatch: every thread must enqueue on, and wait for, one stream.  A
+    thread's current stream is the device's default (legacy) stream unless
+    it sets another, and nothing in the port does."""
+    import threading
+
+    import torch
+
+    if DEVICE != "cuda":
+        return
+    seen = {}
+    worker = threading.Thread(
+        target=lambda: seen.update(s=torch.cuda.current_stream(DEVICE).cuda_stream))
+    worker.start()
+    worker.join()
+    main = torch.cuda.current_stream(DEVICE).cuda_stream
+    default = torch.cuda.default_stream(DEVICE).cuda_stream
+    if not seen["s"] == main == default:
+        raise AssertionError(f"streams differ: worker {seen['s']} main {main} default {default}")
+    log(f"deploy streams: a worker thread's current stream {seen['s']:#x} == the main "
+        f"thread's == the default stream")
+
+
+def mux_rows(tag, r):
+    pad = b"\x00" * MUX_MSG_LEN  # past the 512-byte host fast path: rows take the card
+    return [[[b"cohost-%s-%d-%d-%d" % (tag, r, g, i) + pad] for i in range(MUX_ROWS)]
+            for g in range(MUX_GROUPS)]
+
+
+def check_mux_waves():
+    """Phase 7, part 1: the cohost plane's shared wave on the card at the
+    bench's anatomy shape, against hashlib and two solo per-group fused
+    pipelines on the same rows (one tenant's collect on another thread);
+    one mux wave carrying both tenants' signatures, each group's verdicts
+    against verify_torch on the card with the forgery in its own group;
+    and a multi-group gated quorum wave against its plain version."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch import metrics
+    from mirbft_tpu_torch.groups.cohost import CohostCryptoPlane
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline, host_fused_reference
+    from mirbft_tpu_torch.ops.quorum import quorum_accumulate_torch
+    from mirbft_tpu_torch.processor.verify import seal, signing_payload
+    from mirbft_tpu_torch.testengine.crypto import (
+        DeviceAuthPlane,
+        DeviceHashPlane,
+        SharedWaveMux,
+    )
+
+    check_stream_shared()
+    metrics.default_registry.reset()
+    wave = MUX_GROUPS * MUX_ROWS
+    plane = CohostCryptoPlane(MUX_GROUPS, wave_size=wave, adaptive=False, torch_device=DEVICE)
+    muxed = [plane.hasher_for(g) for g in range(MUX_GROUPS)]
+    solo = []
+    for _ in range(MUX_GROUPS):
+        p = DeviceHashPlane(device=True, wave_size=wave, adaptive=False, torch_device=DEVICE)
+        p.attach_fused(FusedCryptoPipeline(device=DEVICE))
+        solo.append(p)
+
+    def run_round(hashers, batches):
+        handles = [hashers[g].dispatch_batches(batches[g]) for g in range(MUX_GROUPS)]
+        out = {}
+        # The last tenant collects on a thread of its own, as a cohost
+        # host's nodes do.
+        last = MUX_GROUPS - 1
+        worker = threading.Thread(
+            target=lambda: out.update({last: hashers[last].collect_batches(handles[last])}))
+        worker.start()
+        for g in range(last):
+            out[g] = hashers[g].collect_batches(handles[g])
+        worker.join()
+        return [out[g] for g in range(MUX_GROUPS)]
+
+    def timed(hashers, tag):
+        rounds = [mux_rows(tag, r) for r in range(MUX_ROUNDS + 1)]
+        first = run_round(hashers, rounds[0])  # warm
+        torch_sync()
+        start = time.perf_counter()
+        digests = [run_round(hashers, batches) for batches in rounds[1:]]
+        torch_sync()
+        return (time.perf_counter() - start) / MUX_ROUNDS, [first] + digests, rounds
+
+    muxed_s, muxed_digests, rounds = timed(muxed, b"anatomy")
+    occupancy = metrics.gauge("fused_wave_occupancy").value
+    groups_per_wave = metrics.gauge("wave_mux_groups_per_wave").value
+    mux_dispatches = int(metrics.counter("fused_wave_dispatches").value)
+    solo_s, solo_digests, _ = timed(solo, b"anatomy")
+    for r, batches in enumerate(rounds):
+        for g in range(MUX_GROUPS):
+            want = [hashlib.sha256(parts[0]).digest() for parts in batches[g]]
+            if muxed_digests[r][g] != want:
+                raise AssertionError(f"mux wave round {r} group {g}: digests != hashlib")
+            if solo_digests[r][g] != want:
+                raise AssertionError(f"solo wave round {r} group {g}: digests != hashlib")
+    if mux_dispatches != MUX_ROUNDS + 1 or groups_per_wave != MUX_GROUPS:
+        raise AssertionError(f"{mux_dispatches} mux waves of {groups_per_wave} groups for "
+                             f"{MUX_ROUNDS + 1} rounds of {MUX_GROUPS} groups")
+    log(f"deploy mux wave: groups={MUX_GROUPS} rows_per_group={MUX_ROWS} "
+        f"msg_len={MUX_MSG_LEN} wave={wave} rounds={MUX_ROUNDS} digests == hashlib == two "
+        f"solo fused pipelines, last tenant collected on another thread; "
+        f"fused_wave_occupancy={occupancy:.6f} groups_per_wave={groups_per_wave:.0f} "
+        f"mux_wave_ms={muxed_s * 1e3:.6f} (one shared wave a round) "
+        f"solo_waves_ms={solo_s * 1e3:.6f} (two per-group waves a round) "
+        f"solo/mux={solo_s / muxed_s:.4f} | {nvidia_smi_line()}")
+
+    # One mux wave that carries both tenants' pending signatures.
+    keys = {}
+    envelopes = {}
+    for g in range(MUX_GROUPS):
+        for c in range(MUX_SIGNED_CLIENTS):
+            cid = 100 * g + c
+            pub, sign = e.keypair_from_seed(bytes([g + 1, c + 1]) * 16)
+            keys[cid] = pub
+            for r in range(MUX_SIGNED_REQS):
+                payload = b"mux-signed-%d-%d" % (cid, r)
+                sig = sign(signing_payload(cid, r, payload))
+                if g == 0 and c == CORRUPT_CLIENT:
+                    sig = sig[:5] + bytes([sig[5] ^ 0x10]) + sig[6:]  # R tampered, S < L
+                envelopes[cid, r] = seal(payload, sig)
+
+    def provider(client_id, start_req):
+        return [(r, envelopes[client_id, r])
+                for r in range(start_req, MUX_SIGNED_REQS) if (client_id, r) in envelopes]
+
+    pipe = FusedCryptoPipeline(n_groups=MUX_GROUPS, device=DEVICE)
+    mux = SharedWaveMux(pipe, wave_size=MUX_GROUPS, adaptive=False)
+    auths, tenants = [], []
+    n_signed = MUX_GROUPS * MUX_SIGNED_CLIENTS * MUX_SIGNED_REQS
+    for g in range(MUX_GROUPS):
+        auth = DeviceAuthPlane(provider, device=True, wave_size=2 * n_signed,
+                               device_floor=1, lookahead=MUX_SIGNED_REQS, torch_device=DEVICE)
+        hash_plane = DeviceHashPlane(device=True, wave_size=MUX_GROUPS, device_floor=1,
+                                     torch_device=DEVICE)
+        hash_plane.attach_mux(mux, g, auth)
+        for c in range(MUX_SIGNED_CLIENTS):
+            auth.register(100 * g + c, keys[100 * g + c])
+            auth.note(100 * g + c, 0)
+        auths.append(auth)
+        tenants.append(hash_plane)
+    hash_batches = [[[b"signed-wave-%d" % g, bytes([g]) * MUX_MSG_LEN]] for g in range(MUX_GROUPS)]
+    with FusedLog() as flog:
+        torch_sync()
+        start = time.perf_counter()
+        for g in range(MUX_GROUPS):
+            tenants[g].enqueue(hash_batches[g])
+        for g in range(MUX_GROUPS):
+            got = tenants[g].hash_batches(hash_batches[g])
+            if got != [hashlib.sha256(b"".join(hash_batches[g][0])).digest()]:
+                raise AssertionError(f"signed mux wave: group {g} digest != hashlib")
+        signed_s = time.perf_counter() - start
+    if flog.signed != [n_signed] or [a.verified_count for a in auths] != \
+            [n_signed // MUX_GROUPS] * MUX_GROUPS:
+        raise AssertionError(f"signed mux wave: rows per wave {flog.signed}, verified "
+                             f"{[a.verified_count for a in auths]}")
+    order = sorted(envelopes)
+    pubs = [keys[cid] for cid, _ in order]
+    msgs, sigs = [], []
+    for cid, r in order:
+        payload, sig = envelopes[cid, r][:-64], envelopes[cid, r][-64:]
+        msgs.append(signing_payload(cid, r, payload))
+        sigs.append(sig)
+    arrays = pipe.verifier.pack_inputs(pubs, msgs, sigs)
+    plain = e.verify_torch(*(torch.from_numpy(a).to(DEVICE) for a in arrays[:5]))
+    want = plain.cpu().numpy()[: len(order)] & arrays[5][: len(order)]
+    got = np.array([auths[cid // 100].authenticate(cid, r, envelopes[cid, r])
+                    for cid, r in order])
+    if not (got == want).all():
+        raise AssertionError("signed mux wave: a group's verdicts != verify_torch")
+    corrupt = [i for i, (cid, _) in enumerate(order) if cid == CORRUPT_CLIENT]
+    valid, ok = flog.verdicts[0]
+    # The wave's verify stage holds group 0's rows, then group 1's, in
+    # the order the tenants' auth planes queued them: map by (client, req).
+    if sorted(np.flatnonzero(~got)) != corrupt:
+        raise AssertionError("signed mux wave: rejections outside group 0's corrupt signer")
+    kernel_rejected = int((valid & ~ok).sum())
+    if kernel_rejected < 1:
+        raise AssertionError("signed mux wave: the kernel rejected no corrupt row")
+    if [a.verified_count for a in auths] != [n_signed // MUX_GROUPS] * MUX_GROUPS:
+        raise AssertionError("signed mux wave: verdicts were verified again on the host")
+    log(f"deploy signed mux wave: signed_rows={n_signed} in one wave, "
+        f"{n_signed // MUX_GROUPS} a group (verify slices), verdicts == verify_torch, "
+        f"corrupt signer's rows={len(corrupt)}, all rejected and all in group 0, "
+        f"{kernel_rejected} of them by the kernel (the rest by the host screen); "
+        f"signed_mux_wave_ms={signed_s * 1e3:.6f} (dispatch to both tenants' collects)")
+
+    # A gated quorum wave over both tenants' slabs.
+    rng = np.random.default_rng(SEED + 7)
+    msgs = [rng.integers(0, 256, size=MUX_MSG_LEN, dtype=np.uint8).tobytes()
+            for _ in range(MUX_GROUPS * MUX_ROWS)]
+    groups = [i % MUX_GROUPS for i in range(len(msgs))]
+    digests = [hashlib.sha256(m).digest() for m in msgs]
+    quorum = []
+    for w in range(64):
+        g = w % MUX_GROUPS
+        rows = []
+        for k in range(8):
+            row = int(rng.integers(0, len(msgs)))
+            kind = k % 4  # own row right claim, own row wrong claim, other tenant's, ungated
+            if kind == 0:
+                row -= (groups[row] - g) % MUX_GROUPS
+                rows.append((int(rng.integers(0, FUSED_SLOTS)), k % 4, row, digests[row]))
+            elif kind == 1:
+                rows.append((int(rng.integers(0, FUSED_SLOTS)), 1, row, b"\xff" * 32))
+            elif kind == 2:
+                row += 1 if groups[row] == g else 0
+                row %= len(msgs)
+                rows.append((int(rng.integers(0, FUSED_SLOTS)), 2, row, digests[row]))
+            else:
+                rows.append((int(rng.integers(0, FUSED_SLOTS)), 3, None, None))
+        quorum.append((g, w, rows))
+    qpipe = FusedCryptoPipeline(n_slots=FUSED_SLOTS, n_digest_slots=FUSED_DIGEST_SLOTS,
+                                n_groups=MUX_GROUPS, device=DEVICE)
+    with FusedLog() as flog:
+        res = qpipe.collect(qpipe.dispatch_wave(msgs, quorum=quorum, groups=groups))
+    ((_, inputs),) = flog.quorum.values()
+    masks, counts, posts, newbits = quorum_accumulate_torch(*inputs[:5], tuple(inputs[5:]))
+    torch_sync()
+    dev_masks, dev_counts = qpipe.quorum_state()
+    if not ((dev_masks == masks.cpu().numpy().view(np.uint32)).all()
+            and (dev_counts == counts.cpu().numpy()).all()
+            and (res.posts == posts.cpu().numpy()).all()
+            and (res.newbits == newbits.cpu().numpy()).all()):
+        raise AssertionError("multi-group quorum wave != accumulate_torch")
+    zeros = (np.zeros(tuple(qpipe.masks.shape), np.uint32),
+             np.zeros(tuple(qpipe.counts.shape), np.int32))
+    rd, _, rm, rc, _, _ = host_fused_reference(msgs, None, quorum, *zeros, groups=groups,
+                                               n_slots=FUSED_SLOTS)
+    if res.digests != rd or not ((dev_masks == rm).all() and (dev_counts == rc).all()):
+        raise AssertionError("multi-group quorum wave != host_fused_reference")
+    opened = int(np.asarray(res.posts[: len(quorum)]).astype(bool).sum())
+    log(f"deploy multi-group quorum wave: groups={MUX_GROUPS} slots={FUSED_SLOTS} a group "
+        f"waves={len(quorum)} K=8 (own-row right claims, wrong claims, other tenant's rows "
+        f"with the right digest, ungated) == accumulate_torch and host_fused_reference; "
+        f"touches that posted={opened}")
+    return {"mux_wave_ms": muxed_s * 1e3, "solo_waves_ms": solo_s * 1e3,
+            "signed_mux_wave_ms": signed_s * 1e3}
+
+
+def drain_interleaved(recordings, timeout=100_000_000):
+    """Round-robin ``step()`` across co-hosted recordings until each meets
+    drain_clients' completion condition; per-recording step counts."""
+
+    def done(rec):
+        target = {c.config.id: 0 if c.config.corrupt else c.config.total
+                  for c in rec.clients.values()}
+        for node in rec.nodes:
+            for client_state in node.state.checkpoint_state.clients:
+                want = target.get(client_state.id)
+                if want is not None and want != client_state.low_watermark:
+                    return False
+        finished = {cid for cid, total in target.items() if total == 0 or any(
+            node.state.committed_reqs.get(cid, 0) >= total for node in rec.nodes)}
+        return finished >= set(target)
+
+    steps = [0] * len(recordings)
+    finished = [False] * len(recordings)
+    while not all(finished):
+        for k, rec in enumerate(recordings):
+            if finished[k]:
+                continue
+            steps[k] += 1
+            rec.step()
+            finished[k] = done(rec)
+            if steps[k] > timeout:
+                raise AssertionError("interleaved drain stalled")
+    return steps
+
+
+def drive_mux_recordings(host_fps):
+    """Phase 7, part 2: c2_signed's and c3's Recordings as two co-hosted
+    groups on one SharedWaveMux over a 2-group fused pipeline on the card,
+    stepped in turns; each held to its phase-5 host-path fingerprint."""
+    from mirbft_tpu_torch import metrics
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline
+    from mirbft_tpu_torch.testengine import CryptoConfig, Spec
+    from mirbft_tpu_torch.testengine.crypto import SharedWaveMux
+
+    # c2's plane with hash_floor 1, as on c2_signed_fused: at its floor of
+    # 8 its 32 unique digests are all hashed on the host and group 0 would
+    # send the mux nothing.
+    tenants = (("c2_signed", C2, dict(C2_PLANE, hash_floor=1)), ("c3_auto", C3, C3_PLANE))
+    metrics.default_registry.reset()
+    pipe = FusedCryptoPipeline(n_groups=len(tenants), device=DEVICE)
+    mux = SharedWaveMux(pipe, wave_size=MUX_REC_WAVE, adaptive=False)
+    recordings = [
+        Spec(**shape, crypto=CryptoConfig(**plane, kernel="auto", torch_device=DEVICE, mux=mux,
+                                          mux_group=g)).recorder().recording()
+        for g, (_, shape, plane) in enumerate(tenants)
+    ]
+    reset_launches()
+    with WaveLog() as run_waves, VerifyLog() as run_verify, FusedLog() as run_fused:
+        start = time.perf_counter()
+        steps = drain_interleaved(recordings)
+        torch_sync()
+        wall = time.perf_counter() - start
+    launches = read_launches()
+    snap = metrics.snapshot()
+    for g, ((name, shape, _), recording) in enumerate(zip(tenants, recordings)):
+        finals = tuple((n.state.checkpoint_seq_no, n.state.checkpoint_hash)
+                       for n in recording.nodes)
+        check_checkpoints(finals)
+        if (steps[g], finals) != host_fps[name]:
+            raise AssertionError(f"mux group {g}: steps and checkpoints != {name}'s host path")
+        for node in recording.nodes:
+            got = {c: node.state.committed_reqs.get(c, 0) for c in range(shape["client_count"])}
+            if set(got.values()) != {shape["reqs_per_client"]}:
+                raise AssertionError(f"mux group {g}: node {node.id} committed {got}")
+    dispatches = int(snap.get("fused_wave_dispatches", 0))
+    all_waves = dict(run_waves.waves)
+    for key, (count, inputs) in run_fused.waves.items():
+        all_waves[key] = (all_waves.get(key, (0, None))[0] + count, inputs)
+    resolved = {f"sha256_{layout}" for (layout, _) in all_waves}
+    if run_verify.waves or any(run_fused.signed):
+        resolved.add("ed25519_verify")
+    if run_fused.signed:
+        resolved.add("quorum_accumulate")
+    for kernel, count in launches.items():
+        if (count > 0) != (kernel in resolved):
+            raise AssertionError(f"mux recordings: {kernel} launched {count} times")
+    if dispatches <= 0 or launches["quorum_accumulate"] != dispatches or \
+            run_waves.waves:
+        raise AssertionError(f"mux recordings: {dispatches} mux waves, {launches} launches, "
+                             f"plain hash waves {run_waves.waves}")
+    on_mux, touched = sum(run_fused.signed), run_fused.valid_touches()
+    rows = {g: int(snap.get(f'wave_mux_rows_total{{group="{g}"}}', 0)) for g in range(2)}
+    log(f"deploy mux recordings: {tenants[0][0]} (group 0) and {tenants[1][0]} (group 1) "
+        f"stepped in turns on one mux (wave {MUX_REC_WAVE}, fixed): steps={steps} "
+        f"(== their host paths) wall_s={wall:.3f} committed every request on every node")
+    log(f"deploy mux recordings fused traffic: fused_wave_dispatches={dispatches} "
+        f"fused_wave_messages={int(snap.get('fused_wave_messages', 0))} "
+        f"wave_mux_rows_total={rows} groups_per_wave(last)="
+        f"{snap.get('wave_mux_groups_per_wave', 0)} "
+        f"fused_partial_collects={int(snap.get('fused_partial_collects', 0))} "
+        f"quorum launches (W, D, N, K, P, B)={ {k: v[0] for k, v in run_fused.quorum.items()} } "
+        f"valid quorum touches={touched} signatures on mux waves={on_mux} "
+        f"on the auth plane's own waves={sum(real for _, real in run_verify.waves)} "
+        f"launches={launches} waves="
+        f"{ {f'{k[0]}{list(k[1])}': v[0] for k, v in all_waves.items()} }")
+    # As on the fused paths: the auth plane flushes its own pending set at
+    # the first authenticate, so no signature rides a mux wave, and the
+    # hash plane sends no quorum touches; the signed mux wave and the
+    # quorum wave of part 1 hold those stages.
+    if on_mux or touched:
+        raise AssertionError(f"mux recordings: {on_mux} signatures and {touched} valid quorum "
+                             f"touches rode mux waves; check them here")
+    if min(rows.values()) <= 0:
+        raise AssertionError(f"mux recordings: a tenant sent no rows {rows}")
+    return launches, all_waves, run_verify.inputs, run_fused.quorum
+
+
+class _Transport:
+    """In-memory links between threaded nodes: one delivery thread and one
+    bounded queue a node, dropping on overflow (the protocol tolerates
+    loss)."""
+
+    def __init__(self, node_count, buffer=10000):
+        import queue
+        import threading
+
+        self._queue_mod = queue
+        self.queues = [queue.Queue(maxsize=buffer) for _ in range(node_count)]
+        self.nodes = []
+        self.threads = []
+        self.stopping = threading.Event()
+
+    def link(self, source):
+        transport = self
+
+        class _Link:
+            def send(self, dest, msg):
+                try:
+                    transport.queues[dest].put_nowait((source, msg))
+                except transport._queue_mod.Full:
+                    pass
+
+        return _Link()
+
+    def start(self, nodes):
+        import threading
+
+        self.nodes = nodes
+        for i in range(len(nodes)):
+            thread = threading.Thread(target=self._deliver, args=(i,), daemon=True)
+            thread.start()
+            self.threads.append(thread)
+
+    def _deliver(self, dest):
+        while not self.stopping.is_set():
+            try:
+                source, msg = self.queues[dest].get(timeout=0.05)
+            except self._queue_mod.Empty:
+                continue
+            try:
+                self.nodes[dest].step(source, msg)
+            except Exception:
+                return  # the node stopped
+
+    def stop(self):
+        self.stopping.set()
+        for thread in self.threads:
+            thread.join(timeout=5)
+
+
+class _CommitLog:
+    """An app that keeps every applied entry, counts commits, and keeps the
+    network state of its last state transfer."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.entries = []
+        self.commits = {}
+        self.transfers = []
+        self.transferred = None
+
+    def apply(self, entry):
+        with self.lock:
+            self.entries.append(entry)
+            for req in entry.requests:
+                key = (req.client_id, req.req_no)
+                self.commits[key] = self.commits.get(key, 0) + 1
+
+    def snap(self, network_config, client_states):
+        from mirbft_tpu_torch import wire
+        from mirbft_tpu_torch.messages import NetworkState
+
+        encoded = wire.encode(NetworkState(config=network_config, clients=tuple(client_states),
+                                           pending_reconfigurations=()))
+        return hashlib.sha256(encoded).digest() + encoded, ()
+
+    def transfer_to(self, seq_no, snap):
+        from mirbft_tpu_torch import wire
+
+        state = wire.decode(snap[32:])
+        with self.lock:
+            self.transfers.append(seq_no)
+            self.transferred = state
+        return state
+
+    def held(self):
+        """The requests this node's state holds: those it applied, and
+        those its last transferred checkpoint records as committed (below
+        a client's low watermark, or set in its committed mask)."""
+        from mirbft_tpu_torch.statemachine.stateless import Bitmask
+
+        with self.lock:
+            held, state = set(self.commits), self.transferred
+        for client in state.clients if state is not None else ():
+            mask = Bitmask(client.committed_mask)
+            held.update((client.id, r) for r in range(client.low_watermark))
+            held.update((client.id, client.low_watermark + i) for i in range(mask.bits())
+                        if mask.is_bit_set(i))
+        return held
+
+
+def batch_digest(request_bytes):
+    """The processor's digest rules on the host: a request's digest is
+    SHA-256 of its bytes, a batch's is SHA-256 over its requests' digests
+    in order, and a null batch has none."""
+    if not request_bytes:
+        return b""
+    return hashlib.sha256(b"".join(hashlib.sha256(d).digest() for d in request_bytes)).digest()
+
+
+def embedded_requests():
+    """c2's 800 signed envelopes (16 clients x 50), the clients' public
+    keys, and one forged envelope (client 0's first signature with a bit
+    flipped, sent as the request after its last)."""
+    from mirbft_tpu_torch.ops.ed25519 import keypair_from_seed
+    from mirbft_tpu_torch.processor.verify import seal, signing_payload
+
+    keys, envelopes = {}, {}
+    for c in range(NODE_CLIENTS):
+        pub, sign = keypair_from_seed(hashlib.sha256(b"embedded-client-%d" % c).digest())
+        keys[c] = pub
+        for r in range(NODE_REQS):
+            payload = b"embedded-req-%d-%d" % (c, r)
+            envelopes[c, r] = seal(payload, sign(signing_payload(c, r, payload)))
+    good = envelopes[0, 0]
+    forged = seal(b"embedded-forged", good[-64:-59] + bytes([good[-59] ^ 0x10]) + good[-58:])
+    return keys, envelopes, forged
+
+
+def run_embedded_cluster(tmp, keys, envelopes, forged, tick=None, timeout_s=240):
+    """Four threaded Nodes in this process, each with a durable WAL and
+    request store, hashing through TorchHasher and gating signed requests
+    on an Ed25519BatchVerifier on DEVICE, ticking every ``tick`` seconds
+    (NODE_TICK by default); one thread proposes every envelope to every
+    node.  Runs until every node's state holds every
+    request (applied, or carried by a transferred checkpoint), then
+    proposes the forgery.  Returns the nodes' logs, the wall to that
+    point, each node's final epoch, and the forgery's verdict.  Raises
+    if a node fails or the timeout passes first."""
+    import threading
+
+    from mirbft_tpu_torch.config import Config, standard_initial_network_state
+    from mirbft_tpu_torch.node import AuthenticationError, Node, ProcessorConfig
+    from mirbft_tpu_torch.ops.ed25519 import Ed25519BatchVerifier
+    from mirbft_tpu_torch.ops.sha256 import TorchHasher
+    from mirbft_tpu_torch.processor.verify import RequestAuthenticator
+    from mirbft_tpu_torch.reqstore import Store
+    from mirbft_tpu_torch.simplewal import WAL
+
+    tick = NODE_TICK if tick is None else tick
+    ingress = [(c, r, envelopes[c, r]) for (c, r) in sorted(envelopes)]
+    ingress.append((0, NODE_REQS, forged))
+    network_state = standard_initial_network_state(NODE_COUNT, *range(NODE_CLIENTS))
+    transport = _Transport(NODE_COUNT, buffer=0)
+    nodes, logs = [], []
+    start = time.perf_counter()
+    for i in range(NODE_COUNT):
+        auth = RequestAuthenticator(
+            verifier=Ed25519BatchVerifier(min_device_batch=1, device=DEVICE))
+        for c, pub in keys.items():
+            auth.register(c, pub)
+        # The ingress window in one verify wave; the propose gate serves
+        # from the memoized verdicts.
+        verdicts = auth.authenticate_batch(ingress, memoize=True)
+        if not verdicts[:-1].all() or verdicts[-1]:
+            raise AssertionError(f"node {i}: ingress verdicts wrong")
+        logs.append(_CommitLog())
+        nodes.append(Node(i, Config(id=i, batch_size=NODE_BATCH), ProcessorConfig(
+            link=transport.link(i),
+            hasher=TorchHasher(min_device_batch=1, device=DEVICE),
+            app=logs[-1],
+            wal=WAL(os.path.join(tmp, f"wal-{i}")),
+            request_store=Store(os.path.join(tmp, f"reqs-{i}.db")),
+            authenticator=auth,
+        )))
+    transport.start(nodes)
+    for node in nodes:
+        node.process_as_new_node(network_state, b"initial", tick_interval=tick)
+    failures = []
+
+    def propose():
+        # One thread proposes every client's requests to every node in
+        # turn, as the reference's stress cluster does for its client.
+        try:
+            for r in range(NODE_REQS):
+                for c in range(NODE_CLIENTS):
+                    for node in nodes:
+                        for _ in range(3000):
+                            try:
+                                node.client(c).propose(r, envelopes[c, r])
+                                break
+                            except KeyError:
+                                time.sleep(0.01)  # the client window is not allocated
+                        else:
+                            raise AssertionError(f"client {c} window never reached {r}")
+        except BaseException as exc:  # reported below, never swallowed
+            failures.append(exc)
+
+    proposer = threading.Thread(target=propose, daemon=True)
+    proposer.start()
+    want = set(envelopes)
+    deadline = time.time() + timeout_s
+    try:
+        while True:
+            if failures:
+                raise failures[0]
+            for node in nodes:
+                if node.notifier.err() is not None:
+                    raise AssertionError(f"node {node.id} failed: {node.notifier.err()!r}")
+            if all(log_.held() >= want for log_ in logs):
+                wall = time.perf_counter() - start
+                break
+            if time.time() > deadline:
+                raise AssertionError(
+                    f"embedded nodes: not every node holds every request after {timeout_s} s: "
+                    f"held {[len(want & l.held()) for l in logs]}, applied "
+                    f"{[len(l.commits) for l in logs]}, state transfers "
+                    f"{[l.transfers for l in logs]}")
+            time.sleep(0.05)
+        proposer.join(timeout=30)
+        epochs = [node.status().epoch_tracker.active_epoch.number for node in nodes]
+        try:
+            nodes[0].client(0).propose(NODE_REQS, forged)
+            forgery = "accepted"
+        except AuthenticationError:
+            forgery = "AuthenticationError"
+    finally:
+        for node in nodes:
+            node.stop()
+        transport.stop()
+    return {"logs": logs, "wall": wall, "epochs": epochs, "forgery": forgery}
+
+
+def embedded_runs(ticks, runs):
+    """``chip_smoke.py --embedded TICKS RUNS``: run_embedded_cluster on the
+    card RUNS times at each tick in TICKS (comma-separated seconds, in
+    turns), one line a run: the wall, requests applied and held a node,
+    state transfers, final epochs, the forgery's verdict.  It checks
+    nothing; a run that raises prints its error and the next one starts."""
+    import tempfile
+
+    from mirbft_tpu_torch.ops import _build
+
+    log(f"build: {_build.build_all()} | {nvidia_smi_line()}")
+    keys, envelopes, forged = embedded_requests()
+    want = set(envelopes)
+    for index in range(runs):
+        for tick in ticks:
+            start = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "chiprun_out")) as tmp:
+                try:
+                    run = run_embedded_cluster(tmp, keys, envelopes, forged, tick=tick,
+                                               timeout_s=150)
+                except Exception as exc:  # this mode reports, the smoke checks
+                    log(f"embedded tick={tick} run={index} raised after "
+                        f"{time.perf_counter() - start:.3f} s: {exc!r}")
+                    continue
+            logs = run["logs"]
+            log(f"embedded tick={tick} run={index} wall_s={run['wall']:.3f} applied="
+                f"{[len(l.commits) for l in logs]} held={[len(want & l.held()) for l in logs]} "
+                f"state_transfers={[l.transfers for l in logs]} epochs={run['epochs']} "
+                f"forgery={run['forgery']}")
+    return 0
+
+
+def drive_embedded_node(tmp):
+    """Phase 7, part 3: run_embedded_cluster on the card at c2's load.
+    Every node's state must hold all 800 requests: each applied exactly
+    once, or carried by a checkpoint the node state-transferred to (the
+    reference's own stress test, tests/test_node_runtime.py, counts a
+    transferred node the same way); no node applies a request twice or
+    one never sent; every applied batch's digest is hashlib's; and the
+    kernel rejects the forgery on every node."""
+    from mirbft_tpu_torch import metrics
+
+    check_stream_shared()
+    keys, envelopes, forged = embedded_requests()
+    metrics.default_registry.reset()
+    reset_launches()
+    with WaveLog() as run_waves, VerifyLog() as run_verify:
+        run = run_embedded_cluster(tmp, keys, envelopes, forged)
+        torch_sync()
+    launches = read_launches()
+    snap = metrics.snapshot()
+    logs, want = run["logs"], set(envelopes)
+    for i, log_ in enumerate(logs):
+        if any(n != 1 for n in log_.commits.values()) or not set(log_.commits) <= want:
+            raise AssertionError(f"node {i}: a request committed twice, or one never sent")
+        for entry in log_.entries:
+            data = [envelopes[req.client_id, req.req_no] for req in entry.requests]
+            if entry.digest != batch_digest(data):
+                raise AssertionError(f"node {i}: batch {entry.seq_no} digest != hashlib")
+    if run["forgery"] != "AuthenticationError":
+        raise AssertionError("embedded nodes: the forged envelope was accepted")
+    kernel_rejected = sum(int((valid & ~ok).sum()) for valid, ok in run_verify.verdicts)
+    if kernel_rejected != NODE_COUNT:
+        raise AssertionError(f"embedded nodes: the kernel rejected {kernel_rejected} rows, not "
+                             f"the forgery on each of {NODE_COUNT} nodes")
+    if snap.get("hash_dispatch_seconds_count", 0) <= 0:
+        raise AssertionError("embedded nodes: no hash dispatch was timed")
+    resolved = {f"sha256_{layout}" for (layout, _) in run_waves.waves} | {"ed25519_verify"}
+    for kernel, count in launches.items():
+        if (count > 0) != (kernel in resolved):
+            raise AssertionError(f"embedded nodes: {kernel} launched {count} times")
+    if launches["ed25519_verify"] != len(run_verify.waves):
+        raise AssertionError(f"embedded nodes: {len(run_verify.waves)} verify waves, "
+                             f"{launches['ed25519_verify']} kernel launches")
+    unique, wall = len(want), run["wall"]
+    applied_all = sum(set(l.commits) == want for l in logs)
+    log(f"deploy embedded nodes: {NODE_COUNT} threaded Nodes, {NODE_CLIENTS} clients x "
+        f"{NODE_REQS} signed requests, one proposer thread, batch_size {NODE_BATCH}, tick "
+        f"{NODE_TICK} s: every node holds all {unique}, {applied_all} of {NODE_COUNT} by "
+        f"applying each (requests applied a node {[len(l.commits) for l in logs]}, none "
+        f"twice; state transfers {[l.transfers for l in logs]}; final epochs "
+        f"{run['epochs']}), every batch digest == hashlib; wall_s={wall:.3f} (until every "
+        f"node held every request) unique_req_per_s={unique / wall:.1f}; verify waves "
+        f"(rows, real rows)={run_verify.waves} real rows the kernel rejected="
+        f"{kernel_rejected} (the forgery, once a node; propose raised AuthenticationError) "
+        f"hash_dispatch_seconds_count={int(snap['hash_dispatch_seconds_count'])} "
+        f"launches={launches} hash waves="
+        f"{ {f'{k[0]}{list(k[1])}': v[0] for k, v in run_waves.waves.items()} } "
+        f"| {nvidia_smi_line()}")
+    return launches, run_waves.waves, run_verify.inputs, None
+
+
+def run_cohost(shared_wave):
+    """One cohost deployment of tools/mirnet.py (COHOST), its processes
+    started fresh: returns (result, root)."""
+    import shutil
+
+    from mirbft_tpu_torch.tools import mirnet
+
+    root = os.path.join(HERE, "chiprun_out", f"deploy_cohost_{'card' if shared_wave else 'host'}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return mirnet.run_sharded_deployment(root_dir=root, shared_wave=shared_wave, timeout_s=240,
+                                         **COHOST), root
+
+
+def check_cohost_logs(root, label):
+    """Every host process ran clean, a quorum of every group's nodes (the
+    harness waits for 2f + 1) committed all its group's requests, and every
+    batch digest in every commits.log is the processor's, recomputed with
+    hashlib from the requests the harness submitted (``b"mirnet-%d"``).
+    Returns (batches, requests committed a node)."""
+    import glob
+
+    for path in glob.glob(os.path.join(root, "host-*.log")):
+        with open(path, errors="replace") as fh:
+            if "Traceback" in fh.read():
+                raise AssertionError(f"{label}: {path} holds a traceback")
+    batches, per_node = 0, {}
+    quorum = COHOST["nodes_per_group"] - (COHOST["nodes_per_group"] - 1) // 3
+    for g in range(COHOST["groups"]):
+        for h in range(COHOST["nodes_per_group"]):
+            path = os.path.join(root, f"group-{g}", f"node-{h}", "commits.log")
+            with open(path) as fh:
+                lines = [line for line in fh.read().splitlines() if line]
+            reqs = set()
+            for line in lines:
+                _seq, digest, refs = line.split(" ", 2)
+                nums = [int(ref.split(":")[1]) for ref in refs.split(",") if ref]
+                reqs.update(nums)
+                if digest != batch_digest([b"mirnet-%d" % r for r in nums]).hex():
+                    raise AssertionError(f"{label}: {path}: {line!r} digest != hashlib")
+            if not reqs <= set(range(COHOST["reqs_per_group"])):
+                raise AssertionError(f"{label}: {path} committed requests never submitted")
+            per_node[f"{g}/{h}"] = len(reqs)
+            batches += len(lines)
+        done = sum(per_node[f"{g}/{h}"] == COHOST["reqs_per_group"]
+                   for h in range(COHOST["nodes_per_group"]))
+        if done < quorum:
+            raise AssertionError(f"{label}: group {g}: {done} nodes committed every request")
+    return batches, per_node
+
+
+def drive_cohost_deployment():
+    """Phase 7, part 4: tools/mirnet.py's cohost deployment (4 host
+    processes, each serving its node of both groups, each with its own
+    CohostCryptoPlane built on "cuda"), then the same deployment with
+    per-group CPU hashers as its host twin.  At mirnet's load the plane
+    launches no wave (its rows are single parts under 512 bytes, which it
+    hashes on the host, in both packages), so this part puts no kernel
+    work on the card and its launches are 0 (ROADMAP Next 16)."""
+    from mirbft_tpu_torch.tools import mirnet
+
+    for name in ("MIRNET_SHARED_WAVE", "MIRNET_TORCH_DEVICE"):
+        os.environ.pop(name, None)
+    # The host processes start as ``python -m mirbft_tpu_torch.tools.mirnet``.
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    runs = {}
+    reset_launches()
+    for shared_wave in (True, False):
+        res, root = run_cohost(shared_wave)
+        label = "cohost, shared-wave plane built on cuda" if shared_wave else "cohost host twin"
+        batches, per_node = check_cohost_logs(root, label)
+        hosts = []
+        for h in range(COHOST["nodes_per_group"]):
+            prom = os.path.join(root, "group-0", f"node-{h}", "metrics.prom")
+            value = lambda name: mirnet._metric_file_value(mirnet.Path(prom), name)
+            hosts.append({
+                "wave_mux_active": value("wave_mux_active"),
+                "device_hashed_messages": int(value("device_hashed_messages")),
+                "fused_wave_dispatches": int(value("fused_wave_dispatches")),
+                "host_hashed_fast_messages": int(value("host_hashed_fast_messages")),
+                "host_hashed_straggler_messages": int(value("host_hashed_straggler_messages")),
+            })
+        runs[shared_wave] = (res, hosts)
+        log(f"deploy {label}: groups={COHOST['groups']} nodes_per_group="
+            f"{COHOST['nodes_per_group']} host processes={COHOST['nodes_per_group']} "
+            f"requests={COHOST['groups'] * COHOST['reqs_per_group']} committed, agreement "
+            f"clean, node 0's unique_reqs_total={res['unique_reqs_total']}, requests "
+            f"committed a node (group/node)={per_node}, {batches} batch digests in "
+            f"{COHOST['groups'] * COHOST['nodes_per_group']} commits.log == hashlib; "
+            f"wall_s={res['elapsed_s']:.3f} "
+            f"unique_req_per_s={COHOST['groups'] * COHOST['reqs_per_group'] / res['elapsed_s']:.1f}; "
+            f"per host "
+            f"{hosts}")
+        for h, host in enumerate(hosts):
+            if host["wave_mux_active"] != (1 if shared_wave else 0):
+                raise AssertionError(f"{label}: host {h} wave_mux_active="
+                                     f"{host['wave_mux_active']}")
+            if not shared_wave and (host["fused_wave_dispatches"] or
+                                    host["device_hashed_messages"]):
+                raise AssertionError(f"{label}: host {h} used the card: {host}")
+            if shared_wave and host["host_hashed_fast_messages"] <= 0:
+                raise AssertionError(f"{label}: host {h}'s plane served no hash")
+    card, host = runs[True][0], runs[False][0]
+    total = COHOST["groups"] * COHOST["reqs_per_group"]
+    log(f"deploy cohost walls: shared-wave planes built on cuda {card['elapsed_s']:.3f} s "
+        f"({total / card['elapsed_s']:.1f} req/s), per-group CPU hashers "
+        f"{host['elapsed_s']:.3f} s ({total / host['elapsed_s']:.1f} req/s); "
+        f"mux waves on the card {sum(h['fused_wave_dispatches'] for h in runs[True][1])}, "
+        f"device_hashed_messages {sum(h['device_hashed_messages'] for h in runs[True][1])} | "
+        f"{nvidia_smi_line()}")
+    # Launches in this process: the harness's; the nodes run in the hosts.
+    return read_launches(), {}, None, None
+
+
+def drive_deploy(host_fps):
+    """Phase 7: the deployment stack on the card."""
+    import tempfile
+
+    check_mux_waves()
+    results = {"mux_recordings": drive_mux_recordings(host_fps)}
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "chiprun_out")) as tmp:
+        results["embedded_node"] = drive_embedded_node(tmp)
+    results["cohost_deployment"] = drive_cohost_deployment()
+    return results
+
 def report(paths, worst, clock):
-    """Phase 7: time each kernel on the inputs its paths launched it on."""
+    """Phase 8: time each kernel on the inputs its paths launched it on."""
     import numpy as np
 
     from mirbft_tpu_torch.ops.crossover import time_cuda
@@ -1889,6 +2756,9 @@ def main() -> int:
         print("chip_smoke: mirbft_tpu_torch is not beside this script", file=sys.stderr)
         return 1
 
+    if sys.argv[1:2] == ["--embedded"]:
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        return embedded_runs([float(t) for t in sys.argv[2].split(",")], int(sys.argv[3]))
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind} "
@@ -1984,6 +2854,8 @@ def main() -> int:
 
     paths, host_fps = drive_paths()
     paths.update(drive_fast_paths(host_fps))
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    paths.update(drive_deploy(host_fps))
     kernels = report(paths, worst, clock)
     log(json.dumps({"kernels": kernels}))
     log(smi)

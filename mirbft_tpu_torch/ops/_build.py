@@ -12,11 +12,18 @@ kernel's registers, shared memory and spills) is kept beside the library as
 ``lib<name>-<key>.ptxas.txt``.  ``other_library`` builds another revision of
 a source the same way, so that the A/B scripts (``ab_sha256.py``,
 ``ab_ed25519.py``, ``ab_quorum.py``) can time two revisions in one process.
+
+Several processes may reach first use at once (the cohost deployment starts
+one per host): every build holds an ``fcntl`` lock on ``_build/.lock``, and
+a process that waited on it finds the library built and reuses it, so each
+source is compiled once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -113,8 +120,22 @@ def so_path(name: str, source: Optional[str] = None) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{_key(_source(name, source))}.so")
 
 
+@contextlib.contextmanager
+def _dir_lock():
+    """Hold the build directory's lock: one build at a time, across
+    processes and threads."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _start(name: str, source: Optional[str] = None) -> Optional[subprocess.Popen]:
-    """Start ``nvcc`` for one source unless its library is already built."""
+    """Start ``nvcc`` for one source unless its library is already built
+    (the caller holds ``_dir_lock``)."""
     target = so_path(name, source)
     if os.path.exists(target):
         return None
@@ -134,22 +155,23 @@ def _finish(name: str, proc: subprocess.Popen, source: Optional[str] = None) -> 
         raise RuntimeError(f"nvcc failed for {_source(name, source)}:\n{out}")
     with open(target[: -len(".so")] + ".ptxas.txt", "w") as fh:
         fh.write(out)
-    os.replace(tmp, target)  # atomic: concurrent builders race benignly
+    os.replace(tmp, target)  # atomic: a reader never sees a partial library
 
 
 def build_all() -> Dict[str, float]:
     """Build every source in parallel; returns wall seconds per source
     (0.0 for a library that was already built)."""
     names = sorted(SIGNATURES)
-    start = time.perf_counter()
-    procs = {name: _start(name) for name in names}
     seconds = {}
-    for name in names:
-        if procs[name] is not None:
-            _finish(name, procs[name])
-        seconds[name] = (
-            time.perf_counter() - start if procs[name] is not None else 0.0
-        )
+    with _dir_lock():
+        start = time.perf_counter()
+        procs = {name: _start(name) for name in names}
+        for name in names:
+            if procs[name] is not None:
+                _finish(name, procs[name])
+            seconds[name] = (
+                time.perf_counter() - start if procs[name] is not None else 0.0
+            )
     return seconds
 
 
@@ -161,11 +183,19 @@ def ptxas_report(name: str, source: Optional[str] = None) -> str:
         return fh.read()
 
 
+def ensure_built(name: str, source: Optional[str] = None) -> str:
+    """The path of ``source``'s library (``csrc/<name>.cu`` by default),
+    compiled first unless it exists; under the build directory's lock, so
+    that processes which start together compile it once."""
+    with _dir_lock():
+        proc = _start(name, source)
+        if proc is not None:
+            _finish(name, proc, source)
+    return so_path(name, source)
+
+
 def _build_and_load(name: str, source: Optional[str]) -> ctypes.CDLL:
-    proc = _start(name, source)
-    if proc is not None:
-        _finish(name, proc, source)
-    lib = ctypes.CDLL(so_path(name, source))
+    lib = ctypes.CDLL(ensure_built(name, source))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         if source is not None and not hasattr(lib, fn):
             continue  # an older revision may lack a later helper

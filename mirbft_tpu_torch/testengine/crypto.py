@@ -42,9 +42,14 @@ is one fused dispatch (``ops/fused.py``) that also carries whatever the auth
 plane has pending: hash, verify and the quorum stage launch on one stream and
 come back with one collect.
 
-Ported from the JAX package's ``testengine/crypto.py``.  The cross-group
-``SharedWaveMux`` belongs to a later slice of the port and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+With a ``SharedWaveMux`` attached (``attach_mux``), every co-hosted group's
+plane feeds one multi-tenant ``FusedCryptoPipeline``: the mux packs all
+tenants' pending rows into shared group-tagged waves, and each tenant
+collects its own rows through a ``_MuxSubHandle``.
+
+Ported from the JAX package's ``testengine/crypto.py``.  Mesh-sharded planes
+(``mesh_devices > 0``) belong to a later slice of the port and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -59,10 +64,6 @@ from .. import metrics, tracing
 # Parts of the JAX package's crypto planes that later slices port; each
 # entry point raises with its ROADMAP.md item.
 NOT_PORTED = {
-    "mux": (
-        "the shared cross-group wave mux (SharedWaveMux, attach_mux) is not "
-        "ported yet: ROADMAP.md, Next 12"
-    ),
     "mesh": (
         "mesh-sharded device crypto (mesh_devices > 0) is not ported yet: "
         "ROADMAP.md, 'Next, in order' item 6"
@@ -229,6 +230,12 @@ class DeviceHashPlane:
         # set, waves run hash→verify→quorum in one dispatch.
         self._fused = None
         self._fused_auth = None
+        # Shared cross-group multiplexer (attach_mux): when set, this
+        # plane's waves launch through the host-wide mux instead of its
+        # own pipeline — ``_fused`` then IS the mux (it implements the
+        # same collect/collect_ready surface over per-group sub-handles).
+        self._mux = None
+        self._mux_group = 0
         self._hasher = None
         if device:
             from ..ops.sha256 import TorchHasher
@@ -255,8 +262,22 @@ class DeviceHashPlane:
         self._fused_auth = auth_plane
 
     def attach_mux(self, mux, group: int, auth_plane=None) -> None:
-        """Join a host-wide shared wave multiplexer as tenant ``group``."""
-        raise NotImplementedError(NOT_PORTED["mux"])
+        """Join a host-wide ``SharedWaveMux`` as tenant ``group``: this
+        plane's pending rows are packed into the mux's cross-group fused
+        waves (group-tagged on device) instead of launching waves of their
+        own.  The mux hands back per-group sub-handles that collect
+        independently — this group's commit-ready rows never wait on
+        another group's stragglers."""
+        if not self.device:
+            raise ValueError("shared wave mux requires device=True")
+        self._mux = mux
+        self._mux_group = group
+        # The mux quacks like a FusedCryptoPipeline for the collect paths
+        # (collect / collect_ready / hasher), so the fused branches of
+        # _materialize_inflight serve sub-handles unchanged.
+        self._fused = mux
+        self._fused_auth = auth_plane
+        mux._attach(group, self, auth_plane)
 
     # -- scheduler-side -----------------------------------------------------
 
@@ -283,7 +304,13 @@ class DeviceHashPlane:
             pending[key] = (tuple(parts), b"".join(parts))
             join_time += time.perf_counter() - start
         metrics.gauge("hash_wave_queue_depth").set(len(pending))
-        if len(pending) >= self.wave_size:
+        if self._mux is not None:
+            # Mux tenants launch on the AGGREGATE depth across all
+            # co-hosted groups — that is the whole point: one group's
+            # trickle rides another group's burst into a shared wave.
+            if self._mux.aggregate_depth() >= self._mux.wave_size:
+                self._mux.launch()
+        elif len(pending) >= self.wave_size:
             self._launch_wave()
         if join_time:
             metrics.counter("host_crypto_seconds").inc(join_time)
@@ -306,8 +333,9 @@ class DeviceHashPlane:
 
     def flush_inflight(self) -> None:
         """Launch whatever is pending and block until every in-flight wave
-        has materialized — the shutdown barrier: nothing may still be in
-        flight on the card after the owning runtime is torn down."""
+        has materialized — the shutdown barrier (``Node.stop``): nothing
+        may still reference the shared pipeline or mux after the owning
+        runtime is torn down."""
         if not self.device:
             return
         if self._pending:
@@ -320,6 +348,13 @@ class DeviceHashPlane:
         Block buckets are quantized (min 4, powers of two) and the batch
         dimension is pinned to the wave's power-of-two, bounding the set of
         compiled kernel shapes."""
+        if self._mux is not None:
+            # Forced flushes (launch_partial lull fill, poll progress,
+            # straggler sync) flush the WHOLE shared wave: every tenant's
+            # pending rows launch together, preserving each path's
+            # progress guarantee.
+            self._mux.launch()
+            return
         queue_depth = len(self._pending)
         pending, self._pending = self._pending, OrderedDict()
         groups: Dict[int, List[tuple]] = {}
@@ -440,7 +475,11 @@ class DeviceHashPlane:
         batches = list(batches)
         if self.device:
             self.enqueue(batches)
-            if self._pending:
+            # Mux-attached planes defer sub-threshold launches: rows stay
+            # pending so other co-hosted groups' dispatches can join the
+            # same fused wave (enqueue launches at the AGGREGATE
+            # threshold; a collect of still-pending rows flushes the mux).
+            if self._mux is None and self._pending:
                 self._launch_wave()
         return batches
 
@@ -617,11 +656,260 @@ class DeviceHashPlane:
             memo.popitem(last=False)
 
 
-class SharedWaveMux:
-    """Host-wide cross-group crypto multiplexer (a later slice)."""
+class _MuxSubHandle:
+    """One group's view of a shared multiplexed fused wave.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED["mux"])
+    Quacks like a ``FusedDispatch`` for the plane's fused collect paths:
+    ``words`` proxies the shared wave's device array (readiness polls),
+    ``rows`` maps this group's local row order to global wave rows, and
+    ``verify_slice`` carves this group's contiguous segment out of the
+    wave's verdict array — so ``_harvest_auth`` zips from index 0 exactly
+    as on a private wave.  The underlying ``FusedDispatch`` is shared by
+    every group's sub-handle and is freed when the last one is collected
+    and dropped (the pooled lease is released idempotently on the first
+    partial collect)."""
+
+    __slots__ = (
+        "wave", "group", "rows", "verify_lo", "verify_hi",
+        "auth_keys", "auth_items", "row_map",
+    )
+
+    def __init__(self, wave, group, rows, verify_lo=0, verify_hi=0):
+        self.wave = wave
+        self.group = group
+        self.rows = list(rows)
+        self.verify_lo = verify_lo
+        self.verify_hi = verify_hi
+        self.auth_keys = None
+        self.auth_items = None
+        self.row_map = None
+
+    @property
+    def words(self):
+        return self.wave.words
+
+    @property
+    def verify_count(self) -> int:
+        return self.verify_hi - self.verify_lo
+
+
+class SharedWaveMux:
+    """Host-wide crypto multiplexer: every co-hosted group's hash/verify
+    work rides ONE fused device wave.
+
+    PR 6's dispatch anatomy showed per-dispatch overhead dominating device
+    crypto (~110 ms dispatch path around a ~0.2 ms kernel); the cohost
+    layout used to pay that per group.  The mux drains every attached
+    ``DeviceHashPlane``'s pending rows at launch, packs them into shared
+    per-bucket chunks with the group id as a per-row column (the pipeline
+    keeps digest gates and quorum slabs tenant-correct on device), and
+    concatenates the auth planes' pending signatures into the wave's
+    verify stage with per-group verdict slices.  Each group gets back a
+    ``_MuxSubHandle`` that collects its own rows independently through the
+    pipeline's partial ``collect_ready`` — no group ever waits on another
+    group's stragglers to cross the host boundary.
+
+    Wave sizing is the plane's own ``WaveController`` keyed on AGGREGATE
+    depth, with a per-group min-rows floor so the idle shrink cannot
+    starve a low-rate tenant (see WaveController).  Digests and verdicts
+    are pure functions of content, so commit streams are bit-identical to
+    per-group pipelines — pinned by tests/test_wave_mux.py.
+
+    Threading: the mux itself is not synchronized — in the simulated
+    engine all tenants share one event loop.  The real-runtime cohost
+    wiring wraps every entry point in one host-wide lock
+    (``groups/cohost.py``)."""
+
+    def __init__(
+        self,
+        pipeline,
+        wave_size: int = 192,
+        adaptive: bool = True,
+        group_floor: int = 32,
+    ):
+        self.pipeline = pipeline
+        self.wave_size = wave_size
+        self._controller = (
+            WaveController(initial=wave_size, group_floor=group_floor)
+            if adaptive
+            else None
+        )
+        self._planes: "OrderedDict[int, tuple]" = OrderedDict()
+
+    # DeviceHashPlane._launch_wave packs through ``self._fused.hasher``;
+    # the mux is that ``_fused`` for its tenants.
+    @property
+    def hasher(self):
+        return self.pipeline.hasher
+
+    def _attach(self, group: int, plane, auth_plane) -> None:
+        if not 0 <= group < self.pipeline.n_groups:
+            raise ValueError(
+                f"group {group} outside pipeline of {self.pipeline.n_groups}"
+            )
+        self._planes[group] = (plane, auth_plane)
+
+    def aggregate_depth(self) -> int:
+        return sum(len(p._pending) for (p, _) in self._planes.values())
+
+    def launch(self) -> None:
+        """Drain every tenant's pending set into shared fused waves.
+
+        Rows from all groups are bucketed together by block count and
+        chunked to the (aggregate) wave size; each chunk is ONE device
+        dispatch carrying a mixed-group row set.  The first chunk also
+        carries every tenant's pending signatures.  Per-group sub-handles
+        land in each tenant plane's own in-flight list, so all downstream
+        serving (memo fills, partial collects, auth harvest) is the
+        plane's existing machinery."""
+        queue_depth = self.aggregate_depth()
+        entries: List[tuple] = []  # (group, key, refs, message), arrival order
+        active_groups = 0
+        for group in list(self._planes):
+            plane, _auth = self._planes[group]
+            if plane._pending:
+                active_groups += 1
+            pending, plane._pending = plane._pending, OrderedDict()
+            for key, (refs, message) in pending.items():
+                entries.append((group, key, refs, message))
+        buckets: Dict[int, List[tuple]] = {}
+        for group, key, refs, message in entries:
+            plane = self._planes[group][0]
+            bucket = block_bucket_of(
+                len(message), plane.BLOCK_LADDER, plane.max_block_bucket
+            )
+            if bucket is None:
+                # Above the device ladder: host-hash into the owning
+                # plane's memo, exactly like a private wave would.
+                plane._memo_put(key, refs, plane._host_hash(message))
+                continue
+            buckets.setdefault(bucket, []).append((group, key, refs, message))
+        if not buckets:
+            return
+
+        # All tenants' pending signatures ride the first chunk's verify
+        # stage, concatenated group-by-group so each group's verdicts are
+        # one contiguous slice.
+        auth_rows: List[tuple] = []  # (group, keys, items, lo, hi)
+        pubs: List[bytes] = []
+        msgs: List[bytes] = []
+        sigs: List[bytes] = []
+        for group, (_plane, auth) in self._planes.items():
+            if auth is None:
+                continue
+            akeys, aitems, packed = auth.take_pending()
+            if not akeys:
+                continue
+            lo = len(pubs)
+            pubs.extend(packed[0])
+            msgs.extend(packed[1])
+            sigs.extend(packed[2])
+            auth_rows.append((group, akeys, aitems, lo, len(pubs)))
+
+        batch_bucket = _next_pow2(self.wave_size)
+        dispatched = 0
+        dispatch_seconds = 0.0
+        first_chunk = True
+        for bucket in sorted(buckets):
+            all_entries = buckets[bucket]
+            for start in range(0, len(all_entries), self.wave_size):
+                chunk = all_entries[start : start + self.wave_size]
+                tracer = tracing.default_tracer
+                dispatch_ts = tracer.now() if tracer.enabled else 0.0
+                pack_start = time.perf_counter()
+                packed = self.pipeline.hasher.pack(
+                    [m for (_, _, _, m) in chunk],
+                    block_bucket=bucket,
+                    batch_bucket=batch_bucket,
+                )
+                metrics.counter("host_crypto_seconds").inc(
+                    time.perf_counter() - pack_start
+                )
+                signed = (pubs, msgs, sigs) if (first_chunk and pubs) else None
+                dispatch_start = time.perf_counter()
+                wave = self.pipeline.dispatch_wave(
+                    [],
+                    signed=signed,
+                    packed=packed,
+                    groups=[g for (g, _, _, _) in chunk],
+                )
+                step = time.perf_counter() - dispatch_start
+                dispatch_seconds += step
+                metrics.counter("device_dispatch_seconds").inc(step)
+                self._distribute(
+                    wave, chunk, auth_rows if first_chunk else (), dispatch_ts
+                )
+                first_chunk = False
+                dispatched += len(chunk)
+                metrics.counter("device_hash_dispatches").inc()
+                metrics.counter("device_hashed_messages").inc(len(chunk))
+                chunk_groups = {g for (g, _, _, _) in chunk}
+                metrics.gauge("wave_mux_groups_per_wave").set(
+                    len(chunk_groups)
+                )
+                for g in chunk_groups:
+                    metrics.counter(
+                        "wave_mux_rows_total", labels={"group": str(g)}
+                    ).inc(sum(1 for (gg, _, _, _) in chunk if gg == g))
+        if self._controller is not None:
+            self.wave_size = self._controller.observe(
+                queue_depth,
+                dispatched,
+                dispatch_seconds,
+                active_groups=max(1, active_groups),
+            )
+        for plane, _auth in self._planes.values():
+            metrics.gauge("hash_waves_in_flight").set(len(plane._inflight))
+
+    def _distribute(self, wave, chunk, auth_rows, dispatch_ts) -> None:
+        """Hand each tenant its sub-handle over the shared wave."""
+        per_group: "OrderedDict[int, List[int]]" = OrderedDict()
+        for pos, (group, _key, _refs, _msg) in enumerate(chunk):
+            per_group.setdefault(group, []).append(pos)
+        auth_by_group = {g: (k, it, lo, hi) for (g, k, it, lo, hi) in auth_rows}
+        # A tenant with pending signatures but no hash rows in this chunk
+        # still needs a sub-handle to harvest its verdicts from.
+        for g in auth_by_group:
+            per_group.setdefault(g, [])
+        for group, positions in per_group.items():
+            plane = self._planes[group][0]
+            sub = _MuxSubHandle(wave, group, positions)
+            if group in auth_by_group:
+                akeys, aitems, lo, hi = auth_by_group[group]
+                sub.auth_keys = akeys
+                sub.auth_items = aitems
+                sub.verify_lo = lo
+                sub.verify_hi = hi
+            keys = [chunk[p][1] for p in positions]
+            refs = [chunk[p][2] for p in positions]
+            # Local row i of this sub-handle is global wave row
+            # ``positions[i]`` — the plane's partial-collect bookkeeping
+            # (row_map of LOCAL indices) composes with this mapping in
+            # collect_ready below.
+            plane._inflight.append((keys, refs, sub, dispatch_ts))
+            for key, ref in zip(keys, refs):
+                plane._issued[key] = (ref, sub)
+
+    # -- FusedCryptoPipeline collect surface over sub-handles ---------------
+
+    def collect(self, sub: _MuxSubHandle):
+        """Materialize ALL of this group's rows (and its verdict slice) —
+        the other tenants' rows stay device-resident on the shared wave."""
+        return self.collect_ready(sub, range(len(sub.rows)))
+
+    def collect_ready(self, sub: _MuxSubHandle, rows):
+        """Partial collect of this group's LOCAL ``rows`` (indices into the
+        sub-handle's own row order), translated to global wave rows.  The
+        shared lease is released (idempotently) the first time any tenant
+        collects; the wave's words stay resident for the others."""
+        from ..ops.fused import FusedResult
+
+        global_rows = [sub.rows[r] for r in rows]
+        result = self.pipeline.collect_ready(sub.wave, global_rows)
+        verdicts = result.verdicts[sub.verify_lo : sub.verify_hi]
+        return FusedResult(
+            result.digests, verdicts, result.posts, result.newbits
+        )
 
 
 class DeviceAuthPlane:

@@ -10,9 +10,9 @@ client's requests commit on every node.
 
 Ported from the JAX package's ``testengine/recorder.py``: the device hash
 and auth planes and the fused pipeline run the port's CUDA kernels
-(``CryptoConfig.torch_device``), and the parts later slices port (the shared
-wave mux, mesh sharding) raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+(``CryptoConfig.torch_device``; a ``mux`` brings its own pipeline and
+device), and mesh sharding, which a later slice ports, raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -541,8 +541,6 @@ class Recorder:
         crypto = self.crypto
         if crypto.mesh_devices:
             raise NotImplementedError(NOT_PORTED["mesh"])
-        if crypto.device and crypto.mux is not None:
-            raise NotImplementedError(NOT_PORTED["mux"])
         if crypto.device:
             hash_plane = DeviceHashPlane(
                 device=True,
@@ -585,7 +583,9 @@ class Recorder:
             for client_id, pub in signed_pubs.items():
                 auth_plane.register(client_id, pub)
 
-        if crypto.fused and crypto.device:
+        if crypto.mux is not None and crypto.device:
+            hash_plane.attach_mux(crypto.mux, crypto.mux_group, auth_plane)
+        elif crypto.fused and crypto.device:
             from ..ops.fused import FusedCryptoPipeline
 
             hash_plane.attach_fused(

@@ -42,6 +42,35 @@ VERBATIM = [
     "testengine/queue.py",
     "testengine/sched.py",
     "testengine/manglers.py",
+    # The threaded node runtime, its stores and transports, and the
+    # deployment harness's host modules.
+    "reqstore.py",
+    "simplewal.py",
+    "node.py",
+    "fleet.py",
+    "storage/__init__.py",
+    "storage/wal.py",
+    "storage/logstore.py",
+    "storage/segments.py",
+    "storage/snapshot.py",
+    "eventlog/__init__.py",
+    "eventlog/record.py",
+    "eventlog/journal.py",
+    "eventlog/incident.py",
+    "net/__init__.py",
+    "net/framing.py",
+    "net/tcp.py",
+    "net/faults.py",
+    "net/byzantine.py",
+    "net/telemetry.py",
+    "groups/__init__.py",
+    "groups/routing.py",
+    "groups/ship.py",
+    "groups/observer.py",
+    "groups/reshard.py",
+    "tools/__init__.py",
+    "tools/textmarshal.py",
+    "tools/mircat.py",
 ] + [
     f"statemachine/{name}"
     for name in (
@@ -191,3 +220,74 @@ def test_fast_engine_wrapper_is_the_reference_outside_its_device_hooks():
     assert hooks[:2] == ["    ):\n", '"""\n'] and len(hooks) == 5
     assert "mesh" in hooks[2] and hooks[2].count("\n") < 16
     assert all("TpuHasher" in gap and gap.count("\n") < 5 for gap in hooks[3:])
+
+
+# The shared cross-group wave mux in the reference's testengine/crypto.py:
+# the hash plane's attach and its three mux branches (the aggregate launch
+# threshold in enqueue, the forced flush of the whole shared wave, the
+# deferred sub-threshold launch of dispatch_batches), and the sub-handle
+# and mux classes.
+MUX_BLOCKS = [
+    ("        # Shared cross-group multiplexer (attach_mux)", "        # When True the scheduler"),
+    ("    def attach_mux(", "\n    # -- scheduler-side"),
+    ("        if self._mux is not None:\n            # Mux tenants launch", "        if join_time:"),
+    ("        if self._mux is not None:\n            # Forced flushes", "        queue_depth = len("),
+    ("            # Mux-attached planes defer", "        return batches\n"),
+    ("class _MuxSubHandle:", "\n\n\nclass SharedWaveMux"),
+    ("class SharedWaveMux", "\n\n\nclass DeviceAuthPlane"),
+]
+
+
+@pytest.mark.parametrize("block", range(len(MUX_BLOCKS)))
+def test_shared_wave_mux_is_copied(block):
+    ref = _rewrite(_read(REF, "testengine/crypto.py"))
+    port = _read(PORT, "testengine/crypto.py")
+    start, end = MUX_BLOCKS[block]
+    i = ref.index(start)
+    text = ref[i : ref.index(end, i)]
+    assert len(text) > 150 and text in port, start
+    assert "NOT_PORTED[\"mux\"]" not in port
+
+
+# The device hooks of the port's groups/cohost.py: (the reference's text,
+# the port's).  Each one threads the ``torch_device`` keyword through.
+COHOST_HOOKS = [
+    ('    independently (``SharedWaveMux``)."""\n',
+     '    independently (``SharedWaveMux``).\n\n'
+     '    ``torch_device``: "cuda" (the default) launches the port\'s CUDA kernels,\n'
+     '    "cpu" runs their plain PyTorch twins (the CPU tests)."""\n'),
+    ("        adaptive: bool = True,\n    ):\n",
+     '        adaptive: bool = True,\n        torch_device: str = "cuda",\n    ):\n'),
+    ("        self.pipeline = FusedCryptoPipeline(kernel=kernel, n_groups=n_groups)\n",
+     "        self.pipeline = FusedCryptoPipeline(\n"
+     "            kernel=kernel, n_groups=n_groups, device=torch_device\n        )\n"),
+    ("        self.wave_size = wave_size\n        self._planes",
+     "        self.wave_size = wave_size\n        self.torch_device = torch_device\n"
+     "        self._planes"),
+    ("                    kernel=self.kernel,\n",
+     "                    kernel=self.kernel,\n                    torch_device=self.torch_device,\n"),
+]
+
+
+def test_cohost_plane_is_the_reference_outside_its_device_hooks():
+    """groups/cohost.py: the reference with its ``torch_device`` hooks
+    applied, and nothing else."""
+    expected = _rewrite(_read(REF, "groups/cohost.py"))
+    for ref_text, port_text in COHOST_HOOKS:
+        assert expected.count(ref_text) == 1, ref_text
+        assert "torch_device" in port_text
+        expected = expected.replace(ref_text, port_text)
+    assert _read(PORT, "groups/cohost.py") == expected
+
+
+def test_mirnet_is_the_reference_outside_its_cuda_probe():
+    """tools/mirnet.py: the reference but for ``_build_cohost_plane``,
+    whose probe asks torch for a card and never imports JAX."""
+    ref = _rewrite(_read(REF, "tools/mirnet.py"))
+    port = _read(PORT, "tools/mirnet.py")
+    head, tail = "def _build_cohost_plane(", "\n\n\ndef run_host("
+    assert port[: port.index(head)] == ref[: ref.index(head)]
+    assert port[port.index(tail):] == ref[ref.index(tail):]
+    probe = port[port.index(head) : port.index(tail)]
+    assert "jax" not in probe and "JAX_PLATFORMS" not in probe
+    assert "torch.cuda.is_available()" in probe and "MIRNET_TORCH_DEVICE" in probe

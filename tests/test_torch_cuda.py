@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain twin and
-hashlib or ``verify_one``, the device hash plane end to end, and the native
-fast engine's hash and verdict waves.
+hashlib or ``verify_one``, the device hash plane end to end, the native
+fast engine's hash and verdict waves, and the cohost plane's shared waves
+and deployment.
 
 Marked ``cuda`` and skipped where no card is present (a fixture decides, at
 run time).  On the machine with the card, where the JAX package is not
@@ -351,3 +352,66 @@ def test_fast_engine_streaming_verdicts_on_the_card():
     assert (steps, state) == (bitmap_steps, bitmap_state)
     assert dispatches > 1 and ed25519.ed25519_verify_kernel.launches - before == dispatches
     assert all(node[3].get(1, 0) == 0 and node[3].get(0, 0) == 40 for node in state)
+
+
+def test_cohost_plane_on_the_card():
+    """The cohost plane's shared wave on the card: two tenants' 608-byte
+    rows (past the host fast path) in one wave, one tenant collecting on
+    another thread, digests equal hashlib's, and each wave launches the
+    hash kernel and the quorum kernel once."""
+    import threading
+
+    from chip_smoke import MUX_GROUPS, MUX_ROWS, mux_rows
+    from mirbft_tpu_torch.groups.cohost import CohostCryptoPlane
+    from mirbft_tpu_torch.ops import quorum
+
+    plane = CohostCryptoPlane(MUX_GROUPS, wave_size=MUX_GROUPS * MUX_ROWS, adaptive=False)
+    hashers = [plane.hasher_for(g) for g in range(MUX_GROUPS)]
+    before = (_hash_launches(), quorum.quorum_accumulate.launches)
+    for r in range(3):
+        batches = mux_rows(b"card-test", r)
+        handles = [hashers[g].dispatch_batches(batches[g]) for g in range(MUX_GROUPS)]
+        out = {}
+        worker = threading.Thread(target=lambda: out.update(last=hashers[-1].collect_batches(
+            handles[-1])))
+        worker.start()
+        got = [hashers[g].collect_batches(handles[g]) for g in range(MUX_GROUPS - 1)]
+        worker.join()
+        got.append(out["last"])
+        assert got == [[hashlib.sha256(p[0]).digest() for p in batches[g]]
+                       for g in range(MUX_GROUPS)]
+    assert metrics.counter("fused_wave_dispatches").value == 3
+    assert (_hash_launches() - before[0], quorum.quorum_accumulate.launches - before[1]) == (3, 3)
+
+
+def test_mux_waves_on_the_card():
+    """chip_smoke.py's phase-7 wave checks: the shared stream across
+    threads, the cohost plane against hashlib and solo pipelines, one mux
+    wave carrying both tenants' signatures against verify_torch with the
+    forgery in its own group, and a multi-group gated quorum wave against
+    its plain version."""
+    from chip_smoke import check_mux_waves
+
+    times = check_mux_waves()
+    assert times["mux_wave_ms"] > 0 and times["signed_mux_wave_ms"] > 0
+
+
+def test_cohost_deployment_on_the_card(tmp_path, monkeypatch):
+    """tools/mirnet.py's cohost deployment, its plane probed onto the card
+    in each host process: the gauge says so on every host and both groups
+    commit.  At this load the plane launches no wave: the harness's rows
+    take its host fast path."""
+    import os
+
+    from mirbft_tpu_torch.tools import mirnet
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.delenv("MIRNET_SHARED_WAVE", raising=False)
+    monkeypatch.delenv("MIRNET_TORCH_DEVICE", raising=False)
+    monkeypatch.setenv("PYTHONPATH", root)
+    res = mirnet.run_sharded_deployment(root_dir=str(tmp_path), groups=2, nodes_per_group=2,
+                                        reqs_per_group=20, layout="cohost", timeout_s=120)
+    assert res["unique_reqs_total"] == 40
+    for host in range(2):
+        prom = tmp_path / "group-0" / f"node-{host}" / "metrics.prom"
+        assert mirnet._metric_file_value(prom, "wave_mux_active") == 1

@@ -7,8 +7,10 @@ imports every module of the port and runs the 4-node recording with the
 device hash plane on the CPU twins, then a signed 4-node recording with
 the device auth plane on the Ed25519 twin, then the 4-node recording
 through the fused pipeline and one quorum wave stream.  A second
-subprocess runs a signed 4-node ``FastRecording`` on the twins.  A text
-scan of the sources catches imports that the run does not reach.
+subprocess runs a signed 4-node ``FastRecording`` on the twins, and a third
+a cohost deployment of ``tools/mirnet.py`` whose host process inherits the
+block.  A text scan of the sources catches imports that the run does not
+reach.
 """
 
 import os
@@ -115,6 +117,47 @@ def test_fast_engine_runs_with_jax_and_reference_unimportable():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "fast_steps 1169 steps 1169 leaked []" in out.stdout, out.stdout
+
+
+_COHOST_CHILD = r"""
+import sys, tempfile
+import mirbft_tpu_torch.groups, mirbft_tpu_torch.node, mirbft_tpu_torch.tools.mirnet as mirnet
+from pathlib import Path
+root = Path(tempfile.mkdtemp(dir=sys.argv[1]))
+res = mirnet.run_sharded_deployment(root_dir=str(root), groups=2, nodes_per_group=1,
+                                    reqs_per_group=3, layout="cohost", timeout_s=120)
+prom = root / "group-0" / "node-0" / "metrics.prom"
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.") or m == "mirbft_tpu" or m.startswith("mirbft_tpu.")))
+print("committed", res["unique_reqs_total"], "mux", mirnet._metric_file_value(prom, "wave_mux_active"),
+      "leaked", leaked)
+"""
+
+
+def test_cohost_deployment_runs_with_jax_and_reference_unimportable(tmp_path):
+    """The harness and a cohost host process (both groups' nodes and their
+    shared crypto plane, forced onto the CPU twins) with ``jax`` and
+    ``mirbft_tpu`` shadowed by packages that raise on import: the host
+    process inherits the shadowing through PYTHONPATH, and it commits."""
+    blocker = tmp_path / "blocked"
+    for name in ("jax", "mirbft_tpu"):
+        (blocker / name).mkdir(parents=True)
+        (blocker / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
+    env = dict(os.environ, PYTHONPATH=f"{blocker}{os.pathsep}{ROOT}", OMP_NUM_THREADS="1",
+               MIRNET_SHARED_WAVE="force", MIRNET_TORCH_DEVICE="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _COHOST_CHILD, str(tmp_path)],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=240,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "committed 6 mux 1.0 leaked []" in out.stdout, out.stdout
+    (host_log,) = tmp_path.glob("tmp*/host-0.log")
+    assert "Error" not in host_log.read_text()
 
 
 _JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
