@@ -4,6 +4,8 @@
     python3 chip_smoke.py        # from the repo root, on a machine with one H100
     python3 chip_smoke.py --embedded 0.02,0.1 3   # phase 7's threaded nodes alone,
                                                   # 3 runs at each tick, unchecked
+    python3 chip_smoke.py --mesh                  # phase 8 alone, over every card
+                                                  # of the machine (one or several)
 
 Phases (any failure raises, and the script exits nonzero without a result):
 
@@ -135,7 +137,23 @@ Phases (any failure raises, and the script exits nonzero without a result):
             mirnet's load the plane launches no wave (every row takes its
             host fast path), so this part puts no kernel work on the card
             and its launches are 0; the device counters are printed.
-8. report   the kernels' times at the shapes those runs launched, one JSON
+8. mesh     the device mesh (mirbft_tpu_torch/parallel) over every card of
+            the machine: make_mesh (one card more raises), sharded_sha256 at
+            c3's wave [64, 64, 16] and at 4,096 rows of 640 bytes against the
+            unsharded kernel and hashlib (sampled rows), the verify step with
+            0, 1 and 2 corrupted digests, sharded_ed25519_verify at 1,024
+            signed rows (the corrupt signer's 64 among them) and 64 padding
+            rows (real=False) bit for bit against verify_torch on the card
+            with the count of corrupt real rows, the count kernel
+            (csrc/mesh.cu) against its plain version at 1, 7, 33 and 4,097
+            rows with all, none and random rows real or differing, and
+            graft_entry.dryrun_multichip.  Then two mesh paths, each held
+            to its phase-5 host-path fingerprint with an exact launch set
+            and the mesh counters above 0: c2_signed_mesh (c2's Recording
+            with mesh_devices set and hash_floor 1, so that hash waves
+            cross the mesh too) and c2_16n_signed_fast_mesh (FastRecording,
+            whose verify waves cross it).
+9. report   the kernels' times at the shapes those runs launched, one JSON
             line {"kernels": [...]}, the nvidia-smi line, and last the JSON
             device line.
 
@@ -1133,8 +1151,9 @@ class WaveLog:
 class VerifyLog:
     """Observes the auth plane's verify waves by wrapping the verifier:
     each dispatch's rows and real rows, the packed inputs of each wave shape
-    (the latest), and each collect's validity mask and kernel verdicts.
-    Launches are counted only by the kernel wrapper."""
+    (the latest, with the dispatch's real-row mask after the six arrays),
+    and each collect's validity mask and kernel verdicts. Launches are
+    counted only by the kernel wrapper."""
 
     def __init__(self):
         from mirbft_tpu_torch.ops.ed25519 import Ed25519BatchVerifier
@@ -1145,15 +1164,22 @@ class VerifyLog:
         self.inputs = {}  # rows -> (dispatches, packed arrays)
         self.verdicts = []  # (valid, kernel verdict) per collect, real rows only
         self.real_rows = {}  # id(in-flight handle) -> its real rows
+        self.dispatching_real = None  # real rows of the dispatch packing now
 
     def __enter__(self):
+        import numpy as np
+
         dispatch, pack_inputs, collect = self.real
         log_ = self
 
         def wrapped_dispatch(verifier, pubs, msgs, sigs, n_real=None):
             real = len(pubs) if n_real is None else n_real
             log_.waves.append((len(pubs), real))
-            handle = dispatch(verifier, pubs, msgs, sigs, n_real)
+            log_.dispatching_real = real
+            try:
+                handle = dispatch(verifier, pubs, msgs, sigs, n_real)
+            finally:
+                log_.dispatching_real = None
             log_.real_rows[id(handle)] = real
             return handle
 
@@ -1161,7 +1187,9 @@ class VerifyLog:
             packed = pack_inputs(verifier, pubs, msgs, sigs, batch)
             rows = packed[0].shape[0]
             count, _ = log_.inputs.get(rows, (0, None))
-            log_.inputs[rows] = (count + 1, tuple(a.copy() for a in packed))
+            real = rows if log_.dispatching_real is None else log_.dispatching_real
+            log_.inputs[rows] = (count + 1, tuple(a.copy() for a in packed)
+                                 + (np.arange(rows) < real,))
             return packed
 
         def wrapped_collect(verifier, handle):
@@ -1212,10 +1240,12 @@ def counted_kernels():
     from mirbft_tpu_torch.ops import ed25519
 
     from mirbft_tpu_torch.ops import quorum
+    from mirbft_tpu_torch.parallel import shard_count
 
     kernels = {name: entry[0] for name, entry in kernel_table().items()}
     kernels["ed25519_verify"] = ed25519.ed25519_verify_kernel
     kernels["quorum_accumulate"] = quorum.quorum_accumulate
+    kernels["mesh_count"] = shard_count
     return kernels
 
 
@@ -2561,8 +2591,337 @@ def drive_deploy(host_fps):
     results["cohost_deployment"] = drive_cohost_deployment()
     return results
 
-def report(paths, worst, clock):
-    """Phase 8: time each kernel on the inputs its paths launched it on."""
+# Phase 8, mesh.  The sharded hash at c3's wave ([64, 64, 16]) and at 4,096
+# rows of 640 bytes (bench.py's fused wave width), the verify step with 0, 1
+# and 2 corrupted digests, the sharded verify at c2's wave of 1,024 signed
+# rows (the corrupt signer's 64 among them) packed with 64 padding rows, the
+# count kernel alone at row counts under a warp, past a warp and past a
+# block, and the mesh paths: c2's Recording and its FastRecording with
+# mesh_devices set to the cards the machine has.
+MESH_LONG_WAVE, MESH_MSG_LEN = 4096, 640
+MESH_SIGNED, MESH_PADDING = 1024, 64
+MESH_COUNT_ROWS = (1, 7, 33, 4097)
+# A digest row reads its 8 words and 8 expected words; a verdict row reads
+# ok, valid and real and writes ok back; the launch writes one count word.
+MESH_DIGEST_BYTES_PER_ROW, MESH_VERDICT_BYTES_PER_ROW, MESH_COUNT_BYTES = 64, 4, 4
+# Integer operations a row (loads' address math aside): a digest row's 8
+# XORs, 7 ORs, the compare and the add; a verdict row's tests, AND, store
+# and add.
+MESH_DIGEST_OPS_PER_ROW, MESH_VERDICT_OPS_PER_ROW = 17, 6
+
+
+def mesh_count_bound(mode, rows):
+    """(bound_ms, bound_by) of one count launch over ``rows`` rows."""
+    per_row, ops = ((MESH_DIGEST_BYTES_PER_ROW, MESH_DIGEST_OPS_PER_ROW) if mode == "digests"
+                    else (MESH_VERDICT_BYTES_PER_ROW, MESH_VERDICT_OPS_PER_ROW))
+    byte_ms = (rows * per_row + MESH_COUNT_BYTES) / HBM_BYTES_PER_S * 1e3
+    op_ms = rows * ops / ISSUE_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def mesh_count_case(rng, mode, rows, mask):
+    """Inputs of one count launch on the card: digest words and expected
+    words differing in the masked rows, or verdicts, validity and the
+    masked rows as real."""
+    import numpy as np
+    import torch
+
+    pick = {"all": np.ones(rows, bool), "none": np.zeros(rows, bool),
+            "random": rng.random(rows) < 0.3}[mask]
+    if mode == "digests":
+        words = rng.integers(0, 2**32, size=(rows, 8), dtype=np.uint64).astype(np.uint32)
+        expected = words.copy()
+        cols = rng.integers(0, 8, size=rows)
+        expected[pick, cols[pick]] ^= np.uint32(1 << 7)
+        return [torch.from_numpy(a.view(np.int32)).to(DEVICE) for a in (words, expected)]
+    return [torch.from_numpy(a).to(DEVICE)
+            for a in (rng.random(rows) < 0.6, rng.random(rows) < 0.8, pick)]
+
+
+def check_mesh_count(mode, tensors, worst):
+    """The count kernel on ``tensors`` against its plain version on the
+    card (the count, and in verdict mode the verdicts written back)."""
+    from mirbft_tpu_torch.parallel import shard_count, shard_count_torch
+
+    import torch
+
+    a, rest = tensors[0], tensors[1:]
+    got_a, want_a = a.clone(), a.clone()
+    got = int(shard_count(mode, got_a, *rest))
+    want = int(shard_count_torch(mode, want_a, *rest))
+    torch_sync()
+    err = max(abs(got - want), int((got_a.to(torch.int64) - want_a.to(torch.int64)).abs().max())
+              if a.numel() else 0)
+    worst["mesh_count"] = max(worst.get("mesh_count", 0), err)
+    if err:
+        raise AssertionError(f"mesh_count ({mode}, {a.shape[0]} rows): kernel {got} != plain {want}")
+    return got
+
+
+def time_mesh_count(mode, tensors):
+    """(ms, plain_ms) of one count launch (CUDA events, the launcher's
+    zeroing of the count included) and of its plain version."""
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+    from mirbft_tpu_torch.parallel import shard_count, shard_count_torch
+
+    a, rest = tensors[0].clone(), tensors[1:]
+    ms = time_cuda(lambda: shard_count(mode, a, *rest)) * 1e3
+    plain_ms = time_plain(lambda: shard_count_torch(mode, a, *rest), repeats=5) * 1e3
+    return ms, plain_ms
+
+
+def check_mesh(worst):
+    """Phase 8, part 1: the mesh of every card against the unsharded
+    kernels, hashlib and the plain versions; the count kernel alone; the
+    dry run.  Returns the digest-mode count times for the report."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch import graft_entry, parallel
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.sha256 import digests_from_words, pack_messages, wave_to_torch
+    from mirbft_tpu_torch.ops.sha256_pallas import sha256_batch
+
+    n = torch.cuda.device_count()
+    mesh = parallel.make_mesh(n, device=DEVICE)
+    try:
+        parallel.make_mesh(n + 1, device=DEVICE)
+    except ValueError as exc:
+        log(f"mesh: {mesh}; make_mesh({n + 1}) raises ValueError: {exc}")
+    else:
+        raise AssertionError(f"make_mesh({n + 1}) did not raise with {n} cards")
+    rng = np.random.default_rng(SEED + 8)
+    long_messages = [rng.integers(0, 256, size=MESH_MSG_LEN, dtype=np.uint8).tobytes()
+                     for _ in range(MESH_LONG_WAVE)]
+    long_blocks, long_n = pack_messages(long_messages, batch_multiple=n)
+    waves = {"c3_wave": ragged_wave(rng, 64, 64, "batch"),
+             "long_wave": (long_messages, long_blocks, long_n)}
+    verify_step = parallel.distributed_verify_step(mesh)
+    timings = {}
+    for name, (messages, blocks, n_blocks) in waves.items():
+        words = parallel.sharded_sha256(mesh)(blocks, n_blocks)
+        bt, nt = wave_to_torch(blocks, n_blocks, DEVICE)
+        whole = sha256_batch(bt, nt)
+        torch_sync()
+        if words.device != mesh.devices[0] or not torch.equal(words, whole):
+            raise AssertionError(f"mesh {name}: sharded digests != the unsharded kernel's")
+        host = words.cpu().numpy().view(np.uint32)
+        sample = rng.choice(len(messages), size=min(64, len(messages)), replace=False)
+        digests = digests_from_words(host)
+        for i in sample:
+            if digests[i] != hashlib.sha256(messages[i]).digest():
+                raise AssertionError(f"mesh {name}: row {i} != hashlib")
+        counts = []
+        for corrupt in (0, 1, 2):
+            expected = host.copy()
+            for row in rng.choice(len(messages), size=corrupt, replace=False):
+                expected[row, rng.integers(0, 8)] ^= np.uint32(1 << 31)
+            step_words, count = verify_step(blocks, n_blocks, expected)
+            torch_sync()
+            if int(count) != corrupt or not torch.equal(step_words, whole):
+                raise AssertionError(f"mesh {name}: verify step counted {int(count)} of {corrupt}")
+            counts.append(int(count))
+        rows = blocks.shape[0] // n
+        tensors = [whole[:rows], torch.from_numpy(expected[:rows].view(np.int32)).to(DEVICE)]
+        check_mesh_count("digests", tensors, worst)
+        ms, plain_ms = time_mesh_count("digests", tensors)
+        bound_ms, by = mesh_count_bound("digests", rows)
+        timings[f"{rows}_rows_ms"] = ms
+        log(f"mesh {name}: sharded_sha256 {list(blocks.shape)} == sha256_batch and hashlib "
+            f"({len(sample)} sampled rows); verify step counts {counts} for 0, 1, 2 corrupted; "
+            f"kernel mesh_count digests rows={rows} ms={ms:.6f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={bound_ms:.9f} ({by})")
+
+    pubs, msgs, sigs, corrupt = signed_rows(MESH_SIGNED)
+    batch = -(-(MESH_SIGNED + MESH_PADDING) // n) * n
+    packed = e.Ed25519BatchVerifier(device="cpu").pack_inputs(pubs, msgs, sigs, batch=batch)
+    real = np.arange(batch) < MESH_SIGNED
+    ok, invalid = parallel.sharded_ed25519_verify(mesh)(*packed, real)
+    plain = e.verify_torch(*(torch.from_numpy(a).to(DEVICE) for a in packed[:5]))
+    plain &= torch.from_numpy(packed[5]).to(DEVICE)
+    torch_sync()
+    if not torch.equal(ok, plain):
+        raise AssertionError("mesh: sharded verdicts != verify_torch on the card")
+    if int(invalid) != len(corrupt) or ok.cpu().numpy()[corrupt].any():
+        raise AssertionError(f"mesh: count {int(invalid)} of {len(corrupt)} corrupt real rows")
+    log(f"mesh sharded_ed25519_verify: {batch} rows ({MESH_SIGNED} real, {len(corrupt)} of the "
+        f"corrupt signer's, {batch - MESH_SIGNED} padding) == verify_torch on the card; "
+        f"count {int(invalid)}")
+
+    for mode in ("digests", "verdicts"):
+        for rows in MESH_COUNT_ROWS:
+            got = {mask: check_mesh_count(mode, mesh_count_case(rng, mode, rows, mask), worst)
+                   for mask in ("all", "none", "random")}
+            log(f"kernel mesh_count {mode} rows={rows}: counts {got} == plain on the card")
+    counters = graft_entry.dryrun_multichip(n, device=DEVICE)
+    log(f"mesh dryrun_multichip({n}): {counters}")
+    return timings
+
+
+def mesh_paths():
+    """name -> (Spec shape, Recording plane or None, FastRecording keywords
+    or None, the Recording path whose host-path run it is held to)."""
+    return {
+        # hash_floor 1, as on c2_signed_fused: at c2's floor of 8 its 32
+        # unique digests are hashed on the host and no hash wave crosses.
+        "c2_signed_mesh": (C2, dict(C2_PLANE, kernel="auto", hash_floor=1), None, "c2_signed"),
+        "c2_16n_signed_fast_mesh": (C2, None, dict(auth_wave=C2_PLANE["auth_wave"]),
+                                    "c2_signed"),
+    }
+
+
+def drive_mesh(host_fps, worst):
+    """Phase 8: the mesh checks, then the mesh paths, each device run held to
+    its host-path fingerprint with an exact launch set: every mesh verify
+    wave launches the verify and count kernels once a card, every mesh hash
+    wave the batch-major kernel once a card (FastRecording's hash mirror
+    stays off the mesh, as in the JAX package)."""
+    import torch
+
+    from mirbft_tpu_torch.testengine import CryptoConfig, Spec
+
+    timings = check_mesh(worst)
+    n = torch.cuda.device_count()
+    results = {}
+    for name, (shape, plane, fast, held_to) in mesh_paths().items():
+        target = {c: shape["reqs_per_client"] for c in range(shape["client_count"])}
+        reset_launches()
+        with WaveLog() as run_waves, VerifyLog() as run_verify:
+            if fast is None:
+                recording, steps, finals, wall, snap = run_spec(
+                    Spec(**shape, crypto=CryptoConfig(**plane, mesh_devices=n,
+                                                      torch_device=DEVICE)))
+                committed = [node.state.committed_reqs for node in recording.nodes]
+            else:
+                recording, steps, finals, wall, snap = run_fast(
+                    Spec(**shape, crypto=CryptoConfig(mesh_devices=n, torch_device=DEVICE)),
+                    device=True, **fast)
+                committed = [node.committed_reqs for node in recording.nodes]
+        launches = read_launches()
+        if (steps, finals) != host_fps[held_to]:
+            raise AssertionError(f"{name}: device run diverged from {held_to}'s host path")
+        for got in committed:
+            if {c: got.get(c, 0) for c in target} != target:
+                raise AssertionError(f"{name}: a node committed {dict(got)}, not {target}")
+        mesh = {k: int(snap.get(k, 0)) for k in (
+            "mesh_hash_dispatches", "mesh_hashed_messages", "mesh_verify_dispatches",
+            "mesh_verified_signatures")}
+        resolved = {f"sha256_{layout}" for layout, _ in run_waves.waves}
+        if run_verify.waves:
+            resolved |= {"ed25519_verify", "mesh_count"}
+        for kernel, count in launches.items():
+            if (count > 0) != (kernel in resolved):
+                raise AssertionError(f"{name}: {kernel} launched {count} times")
+        verifies = mesh["mesh_verify_dispatches"]
+        if verifies <= 0 or not (launches["ed25519_verify"] == launches["mesh_count"]
+                                 == n * verifies):
+            raise AssertionError(f"{name}: {verifies} mesh verify waves, launches {launches}")
+        if fast is None and (mesh["mesh_hash_dispatches"] <= 0
+                             or launches["sha256_batch"] != n * mesh["mesh_hash_dispatches"]
+                             or snap.get("device_hash_dispatches") != mesh["mesh_hash_dispatches"]):
+            raise AssertionError(f"{name}: mesh hash waves {mesh}, launches {launches}")
+        screened = rejected = 0
+        for valid, ok in run_verify.verdicts:
+            screened += int((~valid).sum())
+            rejected += int((valid & ~ok).sum())
+        log(f"mesh path {name}: steps={steps} (== {held_to}'s host path) wall_s={wall:.6f} "
+            f"unique_req_per_s={sum(target.values()) / wall:.1f} committed={target} on every "
+            f"node; {mesh} launches={launches} verify waves (rows, real rows)="
+            f"{run_verify.waves} hash waves="
+            f"{ {f'{k[0]}{list(k[1])}': v[0] for k, v in run_waves.waves.items()} } "
+            f"real rows the host screen rejected={screened} the kernels rejected={rejected}")
+        results[name] = (launches, dict(run_waves.waves), run_verify.inputs, None)
+    return results, timings
+
+
+def mesh_alone():
+    """``chip_smoke.py --mesh``: phase 8 alone over every card of the
+    machine, after c2's host-path run (the mesh paths' fingerprint), and
+    the count kernel's report entry.  On a machine of several cards this
+    is the check of the mesh across cards that the one-card smoke cannot
+    make."""
+    import torch
+
+    from mirbft_tpu_torch import _native
+    from mirbft_tpu_torch.ops import _build
+    from mirbft_tpu_torch.testengine import Spec
+
+    log(f"mesh alone: {nvidia_smi_line()} x{torch.cuda.device_count()}; "
+        f"build {_build.build_all()}")
+    # The fast engine's g++ build (~35 s) must not land in a timed run.
+    if _native.load_fast() is None:
+        raise AssertionError("g++ could not build the fast engine (_native/fastengine.cpp)")
+    _, steps, finals, wall, _ = run_spec(Spec(**C2))
+    log(f"mesh alone: c2_signed host path steps={steps} wall_s={wall:.3f}")
+    worst = {}
+    start = time.perf_counter()
+    results, timings = drive_mesh({"c2_signed": (steps, finals)}, worst)
+    log(json.dumps({"kernels": [report_mesh(results, worst, timings)]}))
+    log(f"mesh alone: phase 8 and the report in {time.perf_counter() - start:.1f} s")
+    return 0
+
+
+def report_mesh(paths, worst, timings):
+    """The count kernel's entry: timed in verdict mode on each shard of each
+    verify wave the mesh paths launched it on (the wave's own verdicts,
+    validity and real-row mask, sliced per shard as the mesh splits them),
+    held to its plain version there, averaged over the launches; with the
+    digest mode's times at the mesh checks' shapes beside it."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+
+    name = "mesh_count"
+    launches = sum(entry[0].get(name, 0) for entry in paths.values())
+    if launches <= 0:
+        raise AssertionError(f"{name} was launched on no path")
+    n = torch.cuda.device_count()
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0, "bytes": 0}
+    count_all = 0
+    for path, (path_launches, _, inputs, _) in paths.items():
+        if not path_launches.get(name):
+            continue
+        for rows, (count, packed) in (inputs or {}).items():
+            shard = rows // n
+            for i in range(n):
+                part = slice(i * shard, (i + 1) * shard)
+                ok = e.ed25519_verify_kernel(
+                    *(torch.from_numpy(a[part]).to(DEVICE) for a in packed[:5]))
+                valid = torch.from_numpy(packed[5][part]).to(DEVICE)
+                real = torch.from_numpy(packed[6][part]).to(DEVICE)
+                tensors = [ok, valid, real]
+                check_mesh_count("verdicts", tensors, worst)
+                ms, plain_ms = time_mesh_count("verdicts", tensors)
+                bound_ms, by = mesh_count_bound("verdicts", shard)
+                log(f"path-wave {path} {name} verdicts shard={i} rows={shard} "
+                    f"real_rows={int(packed[6][part].sum())} launches={count} "
+                    f"ms={ms:.6f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.9f} ({by})")
+                tot["ms"] += count * ms
+                tot["plain_ms"] += count * plain_ms
+                tot["bound_ms"] += count * bound_ms
+                tot["ops" if by == "operations" else "bytes"] += count
+                count_all += count
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/mesh.cu",
+        "replaces": "mirbft_tpu/parallel/mesh.py:125",
+        "launches": launches,
+        "launches_by_path": {p: entry[0].get(name, 0) for p, entry in paths.items()},
+        "max_abs_err": worst["mesh_count"],
+        "ms": tot["ms"] / count_all,
+        "plain_ms": tot["plain_ms"] / count_all,
+        "bound_ms": tot["bound_ms"] / count_all,
+        "bound_by": "operations" if tot["ops"] > tot["bytes"] else "bytes",
+        "library_ms": None,
+        **{f"digest_mode_{k}": v for k, v in timings.items()},
+        "digest_mode_replaces": "mirbft_tpu/parallel/mesh.py:83",
+    }
+
+
+def report(paths, worst, clock, mesh_timings):
+    """Phase 9: time each kernel on the inputs its paths launched it on."""
     import numpy as np
 
     from mirbft_tpu_torch.ops.crossover import time_cuda
@@ -2622,6 +2981,7 @@ def report(paths, worst, clock):
         })
     kernels.append(report_ed25519(paths, worst, clock))
     kernels.append(report_quorum(paths, worst))
+    kernels.append(report_mesh(paths, worst, mesh_timings))
     return kernels
 
 
@@ -2756,6 +3116,8 @@ def main() -> int:
         print("chip_smoke: mirbft_tpu_torch is not beside this script", file=sys.stderr)
         return 1
 
+    if sys.argv[1:2] == ["--mesh"]:
+        return mesh_alone()
     if sys.argv[1:2] == ["--embedded"]:
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         return embedded_runs([float(t) for t in sys.argv[2].split(",")], int(sys.argv[3]))
@@ -2780,6 +3142,14 @@ def main() -> int:
         fast_build["seconds"] = time.perf_counter() - begin
 
     build_thread = threading.Thread(target=build_fast)
+    # Wall seconds of each phase, logged before the report's lines.
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     start = time.perf_counter()
     build_thread.start()
     seconds = _build.build_all()
@@ -2792,6 +3162,7 @@ def main() -> int:
     log(_build.ptxas_report("sha256").strip())
     log(_build.ptxas_report("ed25519").strip())
     log(_build.ptxas_report("quorum").strip())
+    log(_build.ptxas_report("mesh").strip())
     for name, (ops, static) in sass_mix(_build.so_path("sha256"), list(kernel_table())).items():
         int_ops = {k: v for k, v in ops.items() if k in INTEGER_ALU}
         log(f"sass {name}: {sum(ops.values())} instructions, integer ALU "
@@ -2839,6 +3210,7 @@ def main() -> int:
             f"{op.replace(' ', '_')}={latency_probe.field_cycles(op):.1f}"
             for op in latency_probe.FIELD_OPS))
 
+    lap("device_build_probes")
     worst = check_kernels(clock)
     worst["ed25519_verify"] = check_ed25519(clock)
     worst["quorum_accumulate"] = check_quorum()
@@ -2852,11 +3224,20 @@ def main() -> int:
     log(f"verify probe: vpu_s={measure_verify_probe('cuda')[0]:.9f} (256 zero rows); "
         f"auto resolves to vpu, the card's one verify kernel")
 
+    lap("kernels_fused")
     paths, host_fps = drive_paths()
+    lap("paths")
     paths.update(drive_fast_paths(host_fps))
+    lap("fast")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     paths.update(drive_deploy(host_fps))
-    kernels = report(paths, worst, clock)
+    lap("deploy")
+    mesh_results, mesh_timings = drive_mesh(host_fps, worst)
+    paths.update(mesh_results)
+    lap("mesh")
+    kernels = report(paths, worst, clock, mesh_timings)
+    lap("report")
+    log(f"phase seconds: {phase_s}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -65,6 +65,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_quorum_plan": ((_I64, _I64, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
+    "mesh": {
+        "mirbft_mesh_count": (
+            (ctypes.c_int, _P, _P, _P, _P, _P, _I64, _P, _P), ctypes.c_int,
+        ),
+        "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    },
     "latency_probe": {
         "mirbft_chain_latency": ((_P, _I64, _I64, _P), ctypes.c_int),
         "mirbft_chain_links_per_trip": ((), _I64),
@@ -77,6 +83,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
 }
 
+# The loaded libraries, filled under ``_lock`` (``library`` reads the dict
+# once without it: a library, once stored, is never replaced).
+MIRLINT_SHARED_STATE = {"_libs": "_lock"}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -611,6 +611,11 @@ class Ed25519BatchVerifier:
 
     ``device``: "cuda" (the default) or "cpu".  On the CPU every wave runs
     the plain PyTorch twin; asking for "cuda" without a card raises.
+
+    ``mesh``: an optional ``parallel.Mesh`` of ``device``'s kind; launches
+    then run the batch-sharded verify (``parallel.sharded_ed25519_verify``),
+    verdicts produced across the mesh and the byzantine count all-reduced
+    over it.  Verdicts are bit-identical to one device's.
     """
 
     def __init__(
@@ -625,11 +630,6 @@ class Ed25519BatchVerifier:
 
         if kernel not in ("auto", "vpu", "mxu"):
             raise ValueError(f"unknown ed25519 kernel backend {kernel!r}")
-        if mesh is not None:
-            from ..testengine.crypto import NOT_PORTED
-
-            raise NotImplementedError(NOT_PORTED["mesh"])
-        self.mesh = None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -638,6 +638,23 @@ class Ed25519BatchVerifier:
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
+        if kernel == "auto" and mesh is not None:
+            # The mesh kernel binds its backend at construction.
+            from .crossover import resolve_verify_backend
+
+            kernel = resolve_verify_backend(kernel, backend=self.device.type)
+        self.mesh = mesh
+        self._mesh_fn = None
+        self._mesh_size = 1
+        if mesh is not None:
+            from ..parallel.mesh import sharded_ed25519_verify
+
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"a {mesh.device_type} mesh for a {self.device.type} verifier"
+                )
+            self._mesh_fn = sharded_ed25519_verify(mesh, kernel=kernel)
+            self._mesh_size = mesh.size
         self.min_device_batch = min_device_batch
         # The key caches are process-wide, so the eviction cap is too: a
         # small per-instance size must not shrink them for everyone, and a
@@ -805,18 +822,47 @@ class Ed25519BatchVerifier:
         ``collect`` to materialize the verdicts.
 
         ``n_real``: rows that carry actual signatures when the CALLER
-        already padded the batch (wave-shape padding); kept for the
-        reference's surface (its mesh path counts only those rows)."""
+        already padded the batch (wave-shape padding); the mesh path's
+        byzantine count and the verified-signature counters cover only
+        those rows."""
         import torch
 
         from .. import metrics
 
-        ax, ay, r_bytes, s_bits, h_bits, valid = self.pack_inputs(pubs, msgs, sigs)
-        start = time.perf_counter()
-        ok = ed25519_verify_kernel(
-            *(torch.from_numpy(a).to(self.device) for a in (ax, ay, r_bytes, s_bits, h_bits)),
-            backend=self.resolved_kernel(),
+        n = len(pubs)
+        if n_real is None:
+            n_real = n
+        batch = None
+        if self._mesh_fn is not None:
+            # The batch dimension shards over the mesh: round up to a
+            # multiple of the mesh size (a power-of-two batch already is
+            # one for power-of-two meshes, but not e.g. for 6 devices).
+            batch = _next_pow2(n)
+            if batch % self._mesh_size:
+                batch = (
+                    (batch + self._mesh_size - 1)
+                    // self._mesh_size
+                    * self._mesh_size
+                )
+        ax, ay, r_bytes, s_bits, h_bits, valid = self.pack_inputs(
+            pubs, msgs, sigs, batch=batch
         )
+        start = time.perf_counter()
+        if self._mesh_fn is not None:
+            real = np.zeros(len(valid), dtype=bool)
+            real[:n_real] = True
+            ok, _invalid = self._mesh_fn(
+                ax, ay, r_bytes, s_bits, h_bits,
+                np.asarray(valid, dtype=bool), real,
+            )
+            metrics.counter("mesh_verify_dispatches").inc()
+            metrics.counter("mesh_verified_signatures").inc(n_real)
+        else:
+            ok = ed25519_verify_kernel(
+                *(torch.from_numpy(a).to(self.device)
+                  for a in (ax, ay, r_bytes, s_bits, h_bits)),
+                backend=self.resolved_kernel(),
+            )
         event = None
         if ok.is_cuda:
             event = torch.cuda.Event()
@@ -824,7 +870,7 @@ class Ed25519BatchVerifier:
         metrics.histogram("verify_device_dispatch_seconds").observe(
             time.perf_counter() - start
         )
-        return VerifyDispatch(ok, valid, len(pubs), event)
+        return VerifyDispatch(ok, valid, n, event)
 
     def collect(self, handle: "VerifyDispatch") -> np.ndarray:
         """Block until a dispatch's verdicts are host-resident."""

@@ -152,17 +152,20 @@ def sha256_batch_torch(blocks, n_blocks):
     return narrow_u32(state.t().contiguous())
 
 
+def words_to_torch(arr: np.ndarray, device):
+    """A numpy array of uint32 words -> an int32 tensor with the same bits
+    on ``device``: the form every kernel of the port takes words in."""
+    import torch
+
+    arr = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
 def wave_to_torch(blocks: np.ndarray, n_blocks: np.ndarray, device):
     """A packed wave's numpy uint32 arrays (either layout) -> int32 tensors
     with the same bits on ``device``.  The only state that crosses between
     the JAX package and the port: the kernels consume exactly these."""
-    import torch
-
-    def one(arr):
-        arr = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
-        return torch.from_numpy(arr).to(device)
-
-    return one(blocks), one(n_blocks)
+    return words_to_torch(blocks, device), words_to_torch(n_blocks, device)
 
 # ---------------------------------------------------------------------------
 # Host-side packing: bytes -> padded uint32 block arrays (vectorized, pooled).
@@ -419,7 +422,12 @@ class TorchHasher:
 
     ``device``: "cuda" (the default) or "cpu".  On the CPU every wave runs
     the kernels' plain PyTorch twins; asking for "cuda" without a card
-    raises."""
+    raises.
+
+    ``mesh``: an optional ``parallel.Mesh`` of ``device``'s kind; when set,
+    waves shard the batch dimension across the mesh via ``sharded_sha256``
+    (forces the batch-major layout) and the ``mesh_hash_dispatches`` /
+    ``mesh_hashed_messages`` counters track the traffic."""
 
     def __init__(
         self,
@@ -427,6 +435,7 @@ class TorchHasher:
         max_block_bucket: int = 1 << 14,
         kernel: str = "auto",
         device="cuda",
+        mesh=None,
     ):
         import torch
 
@@ -445,6 +454,17 @@ class TorchHasher:
             raise ValueError(f"unsupported device {device!r}")
         self._cpu = None
         self._pool = _BufferPool()
+        self._mesh_fn = None
+        self._mesh_size = 0
+        if mesh is not None:
+            from ..parallel.mesh import sharded_sha256
+
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"a {mesh.device_type} mesh for a {self.device.type} hasher"
+                )
+            self._mesh_fn = sharded_sha256(mesh)
+            self._mesh_size = mesh.size
         if kernel == "auto" and self.device.type == "cuda":
             # Take the one-time crossover probe now, not inside a wave.
             from .crossover import hash_crossover_batch
@@ -468,9 +488,19 @@ class TorchHasher:
         kernel this wave resolves to (lanes-major for "lanes")."""
         start = time.perf_counter()
         batch_hint = max(len(messages), batch_bucket or 0)
-        layout = "lanes" if self.kernel_for_batch(batch_hint) == "lanes" else "batch"
+        layout = (
+            "lanes"
+            if self.kernel_for_batch(batch_hint) == "lanes"
+            and self._mesh_fn is None
+            else "batch"
+        )
         packed = pack_messages(
-            messages, block_bucket, batch_bucket, layout=layout, pool=self._pool
+            messages,
+            block_bucket,
+            batch_bucket,
+            layout=layout,
+            batch_multiple=self._mesh_size or 1,
+            pool=self._pool,
         )
         _metrics().histogram("hash_pack_seconds").observe(
             time.perf_counter() - start
@@ -479,16 +509,23 @@ class TorchHasher:
 
     def dispatch_packed(self, packed: PackedWave) -> HashDispatch:
         """Phase 2: copy the wave to the device and launch ONE kernel on the
-        current stream; returns without waiting for the kernel."""
+        current stream (with a mesh, one a shard); returns without waiting
+        for the kernel."""
         from .sha256_pallas import sha256_batch
         from .sha256_pallas_lanes import sha256_lanes
 
         start = time.perf_counter()
-        blocks, n_blocks = wave_to_torch(packed.blocks, packed.n_blocks, self.device)
-        if packed.layout == "lanes":
-            words = sha256_lanes(blocks, n_blocks)
+        if self._mesh_fn is not None:
+            words = self._mesh_fn(packed.blocks, packed.n_blocks)
+            m = _metrics()
+            m.counter("mesh_hash_dispatches").inc()
+            m.counter("mesh_hashed_messages").inc(packed.count)
         else:
-            words = sha256_batch(blocks, n_blocks)
+            blocks, n_blocks = wave_to_torch(packed.blocks, packed.n_blocks, self.device)
+            if packed.layout == "lanes":
+                words = sha256_lanes(blocks, n_blocks)
+            else:
+                words = sha256_batch(blocks, n_blocks)
         event = None
         if words.is_cuda:
             import torch

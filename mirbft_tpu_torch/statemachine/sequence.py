@@ -207,7 +207,18 @@ class Sequence:
             self.plane.set_expected(
                 self.seq_no, digest if digest is not None else b""
             )
-        return self.apply_prepare_msg(self.owner, digest)
+        count = self._count_prepare(self.owner, digest)
+        if count is None:
+            # The owner's Commit counted its vote before this digest
+            # arrived (a follower whose hashing lags the network), so the
+            # implicit prepare is a duplicate.  The sequence still needs
+            # the digest's arrival to leave READY, or it waits for an
+            # epoch change.
+            state = self._state
+            if state is SeqState.READY or state is SeqState.PENDING_REQUESTS:
+                return self.advance_state()
+            return EMPTY_ACTIONS
+        return self._advance_on_prepare(count)
 
     def _prepare(self) -> Actions:
         """Persist the QEntry, then send Preprepare (owner) or Prepare
@@ -259,24 +270,35 @@ class Sequence:
         loopback BOTH increment the prepare count (its dup-check is
         ``source != owner`` only), letting a leader count itself twice toward
         the 2f+1 prepare certificate.  We count each node at most once."""
+        count = self._count_prepare(source, digest)
+        if count is None:
+            return EMPTY_ACTIONS  # duplicate
+        return self._advance_on_prepare(count)
+
+    def _count_prepare(self, source: int, digest: Optional[bytes]) -> Optional[int]:
+        """Record ``source``'s prepare; the votes now on ``digest``, or None
+        for a node that already voted."""
         if self.plane is not None:
             count = self.plane.apply_vote(
                 0, self.seq_no, digest if digest is not None else b"", source
             )
             if count is None:
-                return EMPTY_ACTIONS  # duplicate
+                return None
             if source == self.my_id:
                 self.my_prepare_digest = digest
         else:
             bit = 1 << source
             if (self.prep_mask | self.commit_mask) & bit:
-                return EMPTY_ACTIONS
+                return None
             self.prep_mask |= bit
             if source == self.my_id:
                 self.my_prepare_digest = digest
             key = digest if digest is not None else b""
             count = self.prepares.get(key, 0) + 1
             self.prepares[key] = count
+        return count
+
+    def _advance_on_prepare(self, count: int) -> Actions:
         # advance_state can only do work here when the prepare quorum on the
         # incremented digest is reachable (PREPREPARED) or when this is the
         # digest-arrival path (READY/PENDING_REQUESTS); every other state's

@@ -47,9 +47,10 @@ plane feeds one multi-tenant ``FusedCryptoPipeline``: the mux packs all
 tenants' pending rows into shared group-tagged waves, and each tenant
 collects its own rows through a ``_MuxSubHandle``.
 
-Ported from the JAX package's ``testengine/crypto.py``.  Mesh-sharded planes
-(``mesh_devices > 0``) belong to a later slice of the port and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+With ``mesh_devices > 0`` both planes shard their waves' batch dimension
+over a ``parallel.Mesh`` of that many devices of ``torch_device``'s kind.
+
+Ported from the JAX package's ``testengine/crypto.py``.
 """
 
 from __future__ import annotations
@@ -60,16 +61,6 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from .. import metrics, tracing
-
-# Parts of the JAX package's crypto planes that later slices port; each
-# entry point raises with its ROADMAP.md item.
-NOT_PORTED = {
-    "mesh": (
-        "mesh-sharded device crypto (mesh_devices > 0) is not ported yet: "
-        "ROADMAP.md, 'Next, in order' item 6"
-    ),
-}
-
 
 def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
@@ -202,8 +193,6 @@ class DeviceHashPlane:
         adaptive: bool = True,
         torch_device="cuda",
     ):
-        if mesh_devices:
-            raise NotImplementedError(NOT_PORTED["mesh"])
         self.device = device
         self.wave_size = wave_size
         self.device_floor = device_floor
@@ -241,12 +230,21 @@ class DeviceHashPlane:
             from ..ops.sha256 import TorchHasher
 
             # ``torch_device``: "cuda" launches the CUDA kernels; "cpu" runs
-            # their plain PyTorch twins (the CPU tests).
+            # their plain PyTorch twins (the CPU tests).  mesh_devices > 0:
+            # hash waves shard their batch dimension over a device mesh of
+            # that kind exactly like verify waves (digests are bit-identical
+            # to one device's; mesh_hash_dispatches counts the traffic).
+            mesh = None
+            if mesh_devices:
+                from ..parallel.mesh import make_mesh
+
+                mesh = make_mesh(mesh_devices, device=torch_device)
             self._hasher = TorchHasher(
                 min_device_batch=1,
                 max_block_bucket=max_block_bucket,
                 kernel=kernel,
                 device=torch_device,
+                mesh=mesh,
             )
 
     def attach_fused(self, pipeline, auth_plane=None) -> None:
@@ -933,8 +931,6 @@ class DeviceAuthPlane:
     ):
         from ..ops.ed25519 import Ed25519BatchVerifier
 
-        if mesh_devices:
-            raise NotImplementedError(NOT_PORTED["mesh"])
         self.chunk_provider = chunk_provider
         self.device = device
         self.wave_size = wave_size
@@ -945,11 +941,19 @@ class DeviceAuthPlane:
         # backend.  ``torch_device``: "cuda" launches the CUDA kernel, "cpu"
         # runs its plain PyTorch twin.  A host-path plane (device=False)
         # never launches, so its verifier sits on the CPU and a host-path
-        # signed run needs no card.
+        # signed run needs no card.  mesh_devices > 0: a mesh of that many
+        # devices of the verifier's kind, over which verify waves shard.
+        verifier_device = torch_device if device else "cpu"
+        mesh = None
+        if mesh_devices:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(mesh_devices, device=verifier_device)
         self.verifier = Ed25519BatchVerifier(
             min_device_batch=device_floor,
             kernel=verify_kernel,
-            device=torch_device if device else "cpu",
+            device=verifier_device,
+            mesh=mesh,
         )
         self.keys: Dict[int, bytes] = {}
         # (client_id, req_no, id(envelope)) -> (envelope ref, verdict);

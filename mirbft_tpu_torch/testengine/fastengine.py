@@ -18,8 +18,9 @@ Ported from the JAX package's ``testengine/fastengine.py``: every line but
 the device hooks is the reference's (``tests/test_torch_copies.py`` pins
 them).  The hooks build the port's ``TorchHasher`` and
 ``Ed25519BatchVerifier`` on ``torch_device`` ("cuda", or "cpu" for the
-kernels' plain PyTorch twins), and mesh-sharded verification raises
-``NotImplementedError`` as the port's crypto planes do.
+kernels' plain PyTorch twins); with ``spec.crypto.mesh_devices`` the
+verifier shards its waves over a ``parallel.Mesh`` on ``torch_device``, as
+the port's crypto planes do.
 
 Device crypto in fast runs:
 
@@ -432,15 +433,19 @@ class FastRecording:
 
     def _make_verifier(self):
         """Ed25519 verifier for the wrapper's device paths, on
-        ``torch_device``.  ``spec.crypto.mesh_devices`` (the batch-sharded
-        multi-chip kernel) is not ported and raises, as the planes do."""
+        ``torch_device``, honoring ``spec.crypto.mesh_devices`` (verify waves
+        then run the batch-sharded kernels, as on the Python engine)."""
         from ..ops.ed25519 import Ed25519BatchVerifier
-        from .crypto import NOT_PORTED
 
+        mesh = None
         crypto = self.spec.crypto
         if crypto is not None and getattr(crypto, "mesh_devices", 0):
-            raise NotImplementedError(NOT_PORTED["mesh"])
-        return Ed25519BatchVerifier(min_device_batch=1, device=self.torch_device)
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(crypto.mesh_devices, device=self.torch_device)
+        return Ed25519BatchVerifier(
+            min_device_batch=1, mesh=mesh, device=self.torch_device
+        )
 
 
     def _device_verdicts(

@@ -40,7 +40,7 @@ from ..messages import (
 from ..state import Event, EventInitialParameters
 from ..statemachine.actions import Actions, Events
 from ..statemachine.machine import StateMachine
-from .crypto import NOT_PORTED, DeviceAuthPlane, DeviceHashPlane
+from .crypto import DeviceAuthPlane, DeviceHashPlane
 from .queue import EventQueue
 
 
@@ -355,11 +355,11 @@ class CryptoConfig:
     # (ops/fused.py): one device dispatch and one collect per wave instead
     # of three.  Digests and verdicts stay bit-identical.
     fused: bool = False
-    # > 0: build a jax.sharding.Mesh over this many devices and route BOTH
-    # crypto planes' waves through the batch-sharded multi-chip kernels
-    # (parallel.sharded_ed25519_verify for verify waves, sharded_sha256 for
-    # hash waves) — consensus traffic then transits the mesh.  Digests and
-    # verdicts stay bit-identical to single-device.
+    # > 0: build a parallel.Mesh over this many devices of torch_device's
+    # kind and route BOTH crypto planes' waves through the batch-sharded
+    # kernels (parallel.sharded_ed25519_verify for verify waves,
+    # sharded_sha256 for hash waves) — consensus traffic then transits the
+    # mesh.  Digests and verdicts stay bit-identical to single-device.
     mesh_devices: int = 0
     # Re-schedule (in sim time) hash events whose device dispatch is still
     # in flight rather than blocking the host loop.  Step counts become
@@ -539,8 +539,6 @@ class Recorder:
         }
 
         crypto = self.crypto
-        if crypto.mesh_devices:
-            raise NotImplementedError(NOT_PORTED["mesh"])
         if crypto.device:
             hash_plane = DeviceHashPlane(
                 device=True,
@@ -548,6 +546,7 @@ class Recorder:
                 device_floor=crypto.hash_floor,
                 kernel=crypto.kernel,
                 defer_unready=crypto.defer_unready,
+                mesh_devices=crypto.mesh_devices,
                 adaptive=crypto.adaptive_wave,
                 torch_device=crypto.torch_device,
             )

@@ -415,3 +415,59 @@ def test_cohost_deployment_on_the_card(tmp_path, monkeypatch):
     for host in range(2):
         prom = tmp_path / "group-0" / f"node-{host}" / "metrics.prom"
         assert mirnet._metric_file_value(prom, "wave_mux_active") == 1
+
+
+@pytest.mark.parametrize("rows", [1, 7, 33, 4097])
+@pytest.mark.parametrize("mask", ["all", "none", "random"])
+def test_mesh_count_kernel_equals_plain_version(rows, mask):
+    from mirbft_tpu_torch.parallel import shard_count, shard_count_torch
+
+    rng = np.random.default_rng(rows + len(mask))
+    pick = {"all": np.ones(rows, bool), "none": np.zeros(rows, bool),
+            "random": rng.random(rows) < 0.3}[mask]
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, size=(rows, 8), dtype=np.int64)
+                             .astype(np.int32)).cuda()
+    expected = words.clone()
+    flip = torch.from_numpy(pick).cuda()
+    expected[flip, 3] ^= 1
+    before = shard_count.launches
+    got = shard_count("digests", words, expected)
+    assert shard_count.launches == before + 1
+    assert int(got) == int(shard_count_torch("digests", words, expected)) == int(pick.sum())
+    ok = torch.from_numpy(rng.random(rows) < 0.6).cuda()
+    valid = torch.from_numpy(rng.random(rows) < 0.8).cuda()
+    ok_plain = ok.clone()
+    got = shard_count("verdicts", ok, valid, flip)
+    want = shard_count_torch("verdicts", ok_plain, valid, flip)
+    torch.cuda.synchronize()
+    assert int(got) == int(want) and torch.equal(ok, ok_plain)
+
+
+def test_mesh_on_the_card():
+    """The mesh of every card: sharded digests equal the unsharded kernel's,
+    the verify step counts corrupted rows, sharded verification equals the
+    kernel's and counts the corrupt real rows, and the dry run passes."""
+    from mirbft_tpu_torch import graft_entry, parallel
+
+    mesh = parallel.make_mesh(torch.cuda.device_count())
+    with pytest.raises(ValueError):
+        parallel.make_mesh(torch.cuda.device_count() + 1)
+    messages = _messages(7, 64 * mesh.size, 4)
+    packed = pack_messages(messages, block_bucket=4)
+    words = parallel.sharded_sha256(mesh)(packed.blocks, packed.n_blocks)
+    assert words.device == mesh.devices[0]
+    blocks, n_blocks = wave_to_torch(packed.blocks, packed.n_blocks, "cuda")
+    assert torch.equal(words, sha256_batch(blocks, n_blocks))
+    host = words.cpu().numpy().view(np.uint32)
+    corrupted = host.copy()
+    corrupted[[0, 5]] ^= 1
+    _, count = parallel.distributed_verify_step(mesh)(packed.blocks, packed.n_blocks, corrupted)
+    assert int(count) == 2
+    (pubs, msgs, sigs), arrays, expected = _signed_rows()
+    real = np.arange(64) < 48
+    ok, invalid = parallel.sharded_ed25519_verify(mesh)(*arrays, real)
+    inputs = [torch.from_numpy(a).cuda() for a in arrays[:5]]
+    plain = ed25519.verify_torch(*inputs).cpu().numpy() & arrays[5]
+    assert np.array_equal(ok.cpu().numpy(), plain)
+    assert int(invalid) == sum(1 for e in expected if not e)
+    graft_entry.dryrun_multichip(mesh.size)

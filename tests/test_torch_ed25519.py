@@ -292,8 +292,15 @@ def test_verifier_on_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         port.Ed25519BatchVerifier()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.Ed25519BatchVerifier(device="cpu", mesh=object())
+    # A mesh of the verifier's kind shards its waves; a CUDA mesh needs
+    # cards, and a CPU mesh does not serve a CUDA verifier.
+    from mirbft_tpu_torch.parallel import make_mesh
+
+    assert port.Ed25519BatchVerifier(device="cpu", mesh=make_mesh(2, device="cpu"))._mesh_size == 2
+    with pytest.raises(ValueError, match="only 0 available"):
+        make_mesh(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.Ed25519BatchVerifier(mesh=make_mesh(2, device="cpu"))
     with pytest.raises(ValueError):
         port.Ed25519BatchVerifier(device="cpu", kernel="tpu")
 

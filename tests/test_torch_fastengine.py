@@ -310,12 +310,30 @@ def test_unsupported_configs_raise():
     with pytest.raises(FastEngineUnsupported):
         FastRecording(spec, device_authoritative=True, torch_device="cpu")
 
-    # Mesh-sharded verification is not ported: the verdict pass raises, as
-    # the port's planes do.
-    spec = Spec(node_count=4, client_count=1, reqs_per_client=1, signed_requests=True,
-                crypto=CryptoConfig(mesh_devices=2, torch_device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FastRecording(spec, device=True)
+
+def test_mesh_sharded_verdicts_match_reference():
+    """spec.crypto.mesh_devices: the verdict pass's verify waves shard over
+    8 CPU shards (the twins); the run equals the reference's FastRecording
+    with its verify waves on the JAX package's 8-device CPU mesh, and the
+    byzantine signer's requests never commit."""
+    from mirbft_tpu import metrics as ref_metrics
+    from mirbft_tpu.testengine import CryptoConfig as RefCryptoConfig
+
+    shape = dict(node_count=4, client_count=2, reqs_per_client=5, batch_size=2,
+                 signed_requests=True, tweak_recorder=_corrupt_client_1)
+    fast = _port_fast(Spec(**shape, crypto=CryptoConfig(mesh_devices=8, torch_device="cpu")),
+                      device=True)
+    ref_metrics.default_registry.reset()
+    ref = _fast_run(RefFastRecording, RefSpec(**shape, crypto=RefCryptoConfig(mesh_devices=8)),
+                    device=True)
+    assert fast == ref
+    assert fast == _ref_fast(Spec(**shape))
+    snap, ref_snap = metrics.snapshot(), ref_metrics.snapshot()
+    assert snap["mesh_verify_dispatches"] == ref_snap["mesh_verify_dispatches"] == 1
+    assert snap["mesh_verified_signatures"] == ref_snap["mesh_verified_signatures"] == 10
+    assert snap["device_verify_dispatches"] == 1
+    for committed in (node[5] for node in fast[2]):
+        assert committed.get(1, 0) == 0 and committed.get(0, 0) == 5
 
 
 def test_torch_device_defaults_to_the_spec_then_the_card():

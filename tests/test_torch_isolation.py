@@ -7,9 +7,10 @@ imports every module of the port and runs the 4-node recording with the
 device hash plane on the CPU twins, then a signed 4-node recording with
 the device auth plane on the Ed25519 twin, then the 4-node recording
 through the fused pipeline and one quorum wave stream.  A second
-subprocess runs a signed 4-node ``FastRecording`` on the twins, and a third
-a cohost deployment of ``tools/mirnet.py`` whose host process inherits the
-block.  A text scan of the sources catches imports that the run does not
+subprocess runs a signed 4-node ``FastRecording`` on the twins, a third a
+signed 4-node recording whose waves shard over a mesh of two CPU shards,
+and a fourth a cohost deployment of ``tools/mirnet.py`` whose host process
+inherits the block.  A text scan of the sources catches imports that the run does not
 reach.
 """
 
@@ -117,6 +118,43 @@ def test_fast_engine_runs_with_jax_and_reference_unimportable():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert "fast_steps 1169 steps 1169 leaked []" in out.stdout, out.stdout
+
+
+_MESH_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["mirbft_tpu"] = None
+import mirbft_tpu_torch
+from mirbft_tpu_torch import metrics
+from mirbft_tpu_torch.testengine import CryptoConfig, Spec
+signed = Spec(node_count=4, client_count=4, reqs_per_client=4, batch_size=2,
+              signed_requests=True,
+              crypto=CryptoConfig(device=True, hash_wave=4, hash_floor=1, auth_wave=16,
+                                  auth_floor=1, defer_unready=False, mesh_devices=2,
+                                  torch_device="cpu"))
+steps = signed.recorder().recording().drain_clients(timeout=200_000)
+snap = metrics.snapshot()
+assert snap.get("mesh_verify_dispatches", 0) > 0 and snap.get("mesh_hash_dispatches", 0) > 0
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+    m == "jax" or m.startswith("jax.") or m == "mirbft_tpu" or m.startswith("mirbft_tpu.")))
+print("mesh_steps", steps, "leaked", leaked)
+"""
+
+
+def test_signed_mesh_run_with_jax_and_reference_unimportable():
+    """A signed 4-node Recording whose hash and verify waves shard over a
+    mesh of two CPU shards takes the steps of the one-device signed run."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", _MESH_CHILD],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "mesh_steps 1169 leaked []" in out.stdout, out.stdout
 
 
 _COHOST_CHILD = r"""

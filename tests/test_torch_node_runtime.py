@@ -33,10 +33,7 @@ DEVICE = "cpu"
 # microseconds, and the protocol counts its timeouts in ticks: at the JAX
 # package's 0.02 s tick, four nodes hashing on the twins at once miss their
 # heartbeats, suspect each other and hash epoch changes on top.  A 0.5 s
-# tick keeps the timeouts above the twins' hashing time even on a loaded
-# host: at 0.25 s, with every core busy, a node fell behind the others'
-# null batches and state-transferred in two of four runs (both at once in
-# one of them); at 0.5 s in one of eight, and the run takes no longer.
+# tick keeps the timeouts above the twins' hashing time.
 TICK = 0.5
 
 

@@ -7,8 +7,9 @@ grouping cannot touch the simulated schedule: both must take the same
 number of steps and end with the same per-node (checkpoint seq, checkpoint
 hash), and so must the port's host-path run; so must the port's fused
 Recording and the JAX package's, and so must a Recording whose plane is a
-tenant of the shared wave mux.  Mesh sharding, which a later slice ports,
-raises ``NotImplementedError``.
+tenant of the shared wave mux, and so must a Recording whose hash waves
+shard over a mesh of CPU shards (``tests/test_torch_parallel.py`` holds the
+mesh itself to the JAX package's).
 """
 
 import pytest
@@ -136,8 +137,14 @@ def test_auth_plane_asks_for_the_card_only_on_the_device_path(monkeypatch):
     assert host.verifier.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceAuthPlane(lambda client, req: [], device=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DeviceAuthPlane(lambda client, req: [], mesh_devices=2, torch_device="cpu")
+    # A mesh of the plane's kind: CPU shards on the host path and with
+    # torch_device="cpu"; a device plane on "cuda" needs the cards.
+    assert DeviceAuthPlane(lambda client, req: [], device=False,
+                           mesh_devices=2).verifier._mesh_size == 2
+    assert DeviceAuthPlane(lambda client, req: [], mesh_devices=2,
+                           torch_device="cpu").verifier._mesh_size == 2
+    with pytest.raises(ValueError, match="only 0 available"):
+        DeviceAuthPlane(lambda client, req: [], device=True, mesh_devices=1)
 
 
 def test_fused_run_matches_reference_fused_run(reference_run):
@@ -159,14 +166,19 @@ def test_fused_run_matches_reference_fused_run(reference_run):
 
 @pytest.mark.parametrize("part", ["mux", "mesh"])
 def test_later_slices_raise_naming_the_roadmap(part, reference_run):
-    """Mesh sharding, which a later slice ports, raises naming its ROADMAP.md
-    item.  The shared wave mux, the other part this test held back, is
-    ported now: a Recording whose plane is a mux tenant takes the JAX
-    package's steps to the same checkpoints, its waves on the mux."""
+    """The two parts this test held back while later slices ported them
+    are ported now.  A Recording whose hash waves shard over a mesh of two
+    CPU shards, and one whose plane is a mux tenant, each take the JAX
+    package's steps to the same checkpoints, their waves on the mesh or
+    the mux."""
     if part == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Spec(**BASE, crypto=CryptoConfig(**PLANE, torch_device="cpu", mesh_devices=2)
-                 ).recorder().recording()
+        steps, finals, snap = _fingerprint(
+            Spec(**BASE, crypto=CryptoConfig(**PLANE, torch_device="cpu", mesh_devices=2)),
+            metrics,
+        )
+        assert (steps, finals) == reference_run[:2]
+        assert snap.get("mesh_hash_dispatches", 0) > 0
+        assert snap["mesh_hash_dispatches"] == snap["device_hash_dispatches"]
         return
     from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline
     from mirbft_tpu_torch.testengine.crypto import SharedWaveMux
