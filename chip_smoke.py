@@ -6,6 +6,10 @@
                                                   # 3 runs at each tick, unchecked
     python3 chip_smoke.py --mesh                  # phase 8 alone, over every card
                                                   # of the machine (one or several)
+    python3 chip_smoke.py --fused                 # the builds and phase 4 alone
+    python3 chip_smoke.py --host-costs            # a staged wave's host costs,
+                                                  # unchecked; copy the script into
+                                                  # another tree to run it there
 
 Phases (any failure raises, and the script exits nonzero without a result):
 
@@ -45,12 +49,25 @@ Phases (any failure raises, and the script exits nonzero without a result):
             with duplicate touches, slots and sources out of range both
             ways, gated rows that match and do not, a chained prev_words
             and group tags with -1: masks, counts, posts and newbits bit
-            for bit against its plain version on the card.
+            for bit against its plain version on the card.  And the pack
+            kernel (csrc/pack.cu) on staged waves (raw bytes, offsets and
+            lengths): the fused bench wave, c3's [64, 64, 16] wave and the
+            padding boundaries (lengths 0, 1, 55, 56, 63, 64, 119, 120 and
+            640 in one wave), each in both layouts, and the boundary rows
+            out of order in a buffer off the 16-byte grid, bit for bit
+            against its plain version on the card and the host's
+            pack_messages.
 4. fused    the fused wave at the bench's width (bench.py's
             bench_fused_pipeline: 4,096 messages of 640 bytes, 4,096 slots,
             4 digest slots, eight one-touch quorum waves): digests against
             hashlib on every row, quorum state against the plain version
-            fed the same streams, fused_wave_4096_ms pipelined 20 deep; the
+            fed the same streams, fused_wave_4096_ms pipelined 20 deep
+            (the second of two passes: the first allocates the pinned
+            staging buffers, and its time is logged beside; every one of
+            the waves' digests against hashlib: each wave's staged buffer
+            must stay its own while its copy is in flight) and its
+            fused_split line (each part of a dispatch: its
+            host time and, by CUDA events, its time on the card); the
             same wave with 1,024 signed rows riding it (a corrupt signer's
             among them), verdicts against verify_torch on the card and
             verify_one on 64 sampled rows; and a two-wave chain (the second
@@ -146,7 +163,11 @@ Phases (any failure raises, and the script exits nonzero without a result):
             rows (real=False) bit for bit against verify_torch on the card
             with the count of corrupt real rows, the count kernel
             (csrc/mesh.cu) against its plain version at 1, 7, 33 and 4,097
-            rows with all, none and random rows real or differing, and
+            rows with all, none and random rows real or differing, one
+            launch and nothing else a count (eight counts under
+            torch.profiler: eight mesh_count_kernel records, no memset, at
+            one block and at several), each count's time back to back,
+            and
             graft_entry.dryrun_multichip.  Then two mesh paths, each held
             to its phase-5 host-path fingerprint with an exact launch set
             and the mesh counters above 0: c2_signed_mesh (c2's Recording
@@ -431,6 +452,18 @@ def time_plain(fn, repeats=1):
     return (time.perf_counter() - start) / repeats
 
 
+def plain_once(fn):
+    """(result, wall seconds) of one call of a plain version, the card idle
+    before and after: the check's own call, timed."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
 def kernel_table():
     """name -> (wrapper, plain version, layout, source note)."""
     from mirbft_tpu_torch.ops.sha256 import sha256_batch_torch
@@ -475,6 +508,115 @@ def ragged_wave(rng, wave, L, layout, count=None):
         dead = np.broadcast_to(dead, blocks.shape[:1] + (L, 16) + blocks.shape[3:])
         blocks[dead] = rng.integers(0, 2**32, size=int(dead.sum()), dtype=np.uint32)
     return messages, blocks, n_blocks
+
+
+def pack_bound(n_rows, total_bytes, batch, bucket):
+    """bound_ms of one pack launch: each staged input byte read once (the
+    messages, an 8-byte offset and a 4-byte length a row) and each output
+    word written once (the blocks and n_blocks), at the HBM rate."""
+    moved = total_bytes + 12 * n_rows + batch * bucket * 64 + batch * 4
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def pack_case(staged, batch, bucket, layout, host_words):
+    """(ms, plain_ms, bound_ms, max_abs_err) of the pack kernel on a staged
+    wave on the card (``staged``: raw, offsets, lengths tensors): bit for
+    bit against its plain version there and against the host packer's
+    words (``host_words``)."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+    from mirbft_tpu_torch.ops.pack import pack_wave, pack_wave_torch
+
+    got = pack_wave(*staged, batch, bucket, layout)
+    want = pack_wave_torch(*staged, batch, bucket, layout)
+    torch_sync()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    host = [np.asarray(h).reshape(g.shape) for h, g in zip(host_words, got)]
+    if err or any(u32(g).tobytes() != h.astype(np.uint32).tobytes() for g, h in zip(got, host)):
+        raise AssertionError(f"pack_wave {layout} [{batch}, {bucket}]: kernel != plain or the "
+                             f"host packer (max err against plain {err})")
+    ms = time_cuda(lambda: pack_wave(*staged, batch, bucket, layout)) * 1e3
+    plain_ms = time_plain(lambda: pack_wave_torch(*staged, batch, bucket, layout)) * 1e3
+    bound_ms = pack_bound(staged[2].shape[0], int(staged[0].shape[0]), batch, bucket)
+    return ms, plain_ms, bound_ms, err
+
+
+# The pack kernel's waves (phase 3): the fused bench wave, c3's [64, 64, 16]
+# wave and the padding boundaries in one wave, each in both layouts.
+PACK_BOUNDARY = (0, 1, 55, 56, 63, 64, 119, 120, 640)
+
+
+def check_pack():
+    """Phase 3: the pack kernel against its plain version and the host
+    packer (``pack_messages``), bit for bit, on staged waves in both
+    layouts; its times beside its byte bound."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops.pack import StagingPool, stage_messages
+    from mirbft_tpu_torch.ops.sha256 import pack_messages
+
+    rng = np.random.default_rng(SEED + 11)
+    fused = [rng.integers(0, 256, size=FUSED_MSG_LEN, dtype=np.uint8).tobytes()
+             for _ in range(FUSED_BATCH)]
+    c3 = [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+          for n in rng.integers(0, 64 * 64 - 8, size=64)]
+    boundary = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes() for n in PACK_BOUNDARY]
+    cases = (("fused", fused, {}), ("c3", c3, {"block_bucket": 64, "batch_bucket": 64}),
+             ("boundary", boundary, {}))
+    pool = StagingPool(pinned=DEVICE == "cuda")
+    worst = scattered_pack_case(boundary)
+    for name, messages, kw in cases:
+        for layout in ("batch", "lanes"):
+            wave = stage_messages(messages, layout=layout, pool=pool, **kw)
+            t = wave.views(wave.copy_in(torch.device(DEVICE)))
+            want = pack_messages(messages, layout=layout, **kw)
+            ms, plain_ms, bound_ms, err = pack_case(
+                [t["raw"], t["offsets"], t["lengths"]], wave.batch, wave.bucket, layout,
+                (want.blocks, want.n_blocks))
+            worst = max(worst, err)
+            log(f"kernel pack_wave {name} layout={layout} rows={len(messages)} "
+                f"shape={list(wave.blocks_shape)} bytes={sum(map(len, messages))} "
+                f"ms={ms:.6f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.9f} (bytes) "
+                f"== plain and pack_messages")
+            torch_sync()
+            pool.release(wave.lease)
+    return worst
+
+
+def scattered_pack_case(messages):
+    """The pack kernel on rows out of order, 3 bytes apart, in a buffer
+    that starts one byte off the 16-byte grid (every granule read byte by
+    byte), against its plain version and ``pack_messages``; returns the
+    max error against the plain version."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops.sha256 import pack_messages
+
+    chunks, offsets, at = [b"\0"], [0] * len(messages), 0
+    for i in reversed(range(len(messages))):
+        offsets[i] = at
+        chunks.append(messages[i] + b"\0\0\0")
+        at += len(messages[i]) + 3
+    buf = torch.from_numpy(np.frombuffer(b"".join(chunks), dtype=np.uint8).copy()).to(DEVICE)
+    staged = [buf[1:], torch.tensor(offsets, dtype=torch.int64, device=DEVICE),
+              torch.tensor([len(m) for m in messages], dtype=torch.int32, device=DEVICE)]
+    if staged[0].data_ptr() % 16 == 0:
+        raise AssertionError("the scattered pack case's raw bytes are 16-byte aligned")
+    worst = 0
+    for layout in ("batch", "lanes"):
+        want = pack_messages(messages, layout=layout)
+        batch = want.n_blocks.size
+        _, _, _, err = pack_case(staged, batch, want.blocks.shape[1], layout,
+                                 (want.blocks, want.n_blocks))
+        worst = max(worst, err)
+    log(f"kernel pack_wave scattered rows={len(messages)} (out of order, raw off the 16-byte "
+        f"grid) == plain and pack_messages in both layouts")
+    return worst
 
 
 def rows_of(words, layout):
@@ -914,6 +1056,167 @@ def fused_bound(pipe, quorum, signed, hz):
     return hash_ms + quorum_ms, hash_ms + quorum_ms + verify_ms
 
 
+# The parts of a fused dispatch that fused_split times, by where they live:
+# (label, module or class path, attribute).  A part the code does not have
+# is left out of the line.
+SPLIT_PARTS = (
+    ("host_pack", "mirbft_tpu_torch.ops.sha256:TorchHasher", "pack"),
+    ("verify_pack", "mirbft_tpu_torch.ops.ed25519:Ed25519BatchVerifier", "pack_inputs"),
+    ("pack_quorum", "mirbft_tpu_torch.ops.fused:FusedCryptoPipeline", "_pack_quorum"),
+    ("stage_copy", "mirbft_tpu_torch.ops.pack:StagedWave", "copy_in"),
+    ("pack_wave", "mirbft_tpu_torch.ops.pack:StagedWave", "pack"),
+    ("sha256_lanes", "mirbft_tpu_torch.ops.sha256_pallas_lanes", "sha256_lanes"),
+    ("sha256_batch", "mirbft_tpu_torch.ops.sha256_pallas", "sha256_batch"),
+    ("hash_stage", "mirbft_tpu_torch.ops.fused", "_hash_stage"),
+    ("ed25519_verify", "mirbft_tpu_torch.ops.ed25519", "ed25519_verify_kernel"),
+    ("quorum_accumulate", "mirbft_tpu_torch.ops.quorum", "quorum_accumulate"),
+)
+
+
+def fused_split(pipe, msg_sets, quorum, signed=None):
+    """The ``fused_split`` line: FUSED_DEPTH waves pipelined as in
+    check_fused, each part of a dispatch (SPLIT_PARTS) wrapped with a host
+    clock and, on the card, a pair of CUDA events on the current stream.
+    Per part, the median over the waves of its host seconds and of its
+    device time (the events bracket what the part enqueued: a copy or a
+    kernel); ``hash_stage`` holds the hash kernel and, for the lanes layout,
+    the permute to one digest row a message.  ``wave_ms`` is the host wall
+    per wave of the instrumented loop, ``device_span_ms`` the card's time
+    from the first wave's first event to the last wave's last."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    on_card = pipe.device.type == "cuda"
+    records = {}  # label -> [(host_s, (start event, end event))] in call order
+    ordered = []  # every part's events in call order
+    patched = []
+    for label, where, attr in SPLIT_PARTS:
+        mod_name, _, cls_name = where.partition(":")
+        try:
+            owner = importlib.import_module(mod_name)
+        except ImportError:
+            continue
+        owner = getattr(owner, cls_name, None) if cls_name else owner
+        real = getattr(owner, attr, None) if owner is not None else None
+        if real is None:
+            continue
+
+        def wrapped(*args, _real=real, _label=label, **kwargs):
+            events = None
+            if on_card:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            begin = time.perf_counter()
+            out = _real(*args, **kwargs)
+            host_s = time.perf_counter() - begin
+            if on_card:
+                events[1].record()
+            records.setdefault(_label, []).append((host_s, events))
+            ordered.append(events)
+            return out
+
+        for key, value in vars(real).items():
+            setattr(wrapped, key, value)
+        patched.append((owner, attr, real))
+        setattr(owner, attr, wrapped)
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+        begin = time.perf_counter()
+        handles = [pipe.dispatch_wave(msg_sets[i % 2], quorum=quorum, signed=signed)
+                   for i in range(FUSED_DEPTH)]
+        pipe.collect(handles[-1])
+        wave_ms = (time.perf_counter() - begin) / FUSED_DEPTH * 1e3
+        for h in handles:
+            pipe._release_lease(h)
+    finally:
+        for owner, attr, real in reversed(patched):
+            setattr(owner, attr, real)
+    if on_card:
+        torch.cuda.synchronize()
+    parts = {}
+    for label, calls in records.items():
+        per_wave = len(calls) // FUSED_DEPTH or 1
+        host = [sum(c[0] for c in calls[i:i + per_wave]) * 1e3
+                for i in range(0, len(calls), per_wave)]
+        entry = {"calls_per_wave": len(calls) / FUSED_DEPTH,
+                 "host_ms": float(np.median(host))}
+        if on_card:
+            dev = [sum(c[1][0].elapsed_time(c[1][1]) for c in calls[i:i + per_wave])
+                   for i in range(0, len(calls), per_wave)]
+            entry["device_ms"] = float(np.median(dev))
+        parts[label] = entry
+    span = ordered[0][0].elapsed_time(ordered[-1][1]) if on_card and ordered else None
+    host_parts = sum(p["host_ms"] for label, p in parts.items()
+                     if label not in ("sha256_lanes", "sha256_batch"))
+    line = {"signed_rows": len(signed[0]) if signed else 0, "messages": len(msg_sets[0]),
+            "depth": FUSED_DEPTH, "wave_ms": wave_ms, "device_span_ms": span,
+            "parts_host_ms_sum": host_parts, "parts": parts}
+    log(f"fused_split {json.dumps(line)}")
+    return line
+
+
+def staged_copy(pipe, messages, quorum, signed=None):
+    """(staged bytes, ms) of one fused wave's single host-to-device copy:
+    the wave staged and dispatched as the pipeline does, then its pinned
+    buffer's copy timed alone, back to back by CUDA events (the measured
+    pinned copy rate, for the wave's bound)."""
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+
+    packed = pipe.hasher.pack(messages)
+    pipe.collect(pipe.dispatch_wave([], quorum=quorum, signed=signed, packed=packed))
+    flat = packed.lease.flat[: packed.nbytes]
+    ms = time_cuda(lambda: flat.to(pipe.device, non_blocking=True)) * 1e3
+    return packed.nbytes, ms
+
+
+TINY_WAVES = 200
+
+
+def tiny_wave_dispatch():
+    """The ``tiny_wave`` line: host ms a wave, dispatch to digest on the
+    host, at the embedded nodes' commonest wave ([1, 2, 16]: one message
+    of 100 bytes), median of TINY_WAVES: TorchHasher's staged path (one
+    copy, the pack kernel, the hash kernel) and, beside it for comparison
+    only, the host packer's words copied in and hashed (the dispatch the
+    hasher made before the pack kernel).  Both end in the digests' copy
+    back, which waits for the card."""
+    import numpy as np
+
+    from mirbft_tpu_torch.ops.sha256 import TorchHasher, pack_messages, wave_to_torch
+    from mirbft_tpu_torch.ops.sha256_pallas import sha256_batch
+
+    hasher = TorchHasher(min_device_batch=1, kernel="scan", device=DEVICE)
+    message = bytes(range(100))
+    want = hashlib.sha256(message).digest()
+
+    def staged():
+        return hasher.collect(hasher.dispatch([message], block_bucket=2))[0]
+
+    def host_packed():
+        blocks, n_blocks = pack_messages([message], 2)
+        words = sha256_batch(*wave_to_torch(blocks, n_blocks, DEVICE))
+        return bytes(words.cpu().numpy().astype(">u4").tobytes())
+
+    out = {}
+    for name, fn in (("staged", staged), ("host_packed", host_packed)):
+        if fn() != want:
+            raise AssertionError(f"tiny wave ({name}) != hashlib")
+        times = []
+        for _ in range(TINY_WAVES):
+            begin = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - begin) * 1e3)
+        out[name] = float(np.median(times))
+    log(f"tiny_wave [1, 2, 16] host ms a wave, dispatch to digest, median of {TINY_WAVES}: "
+        f"staged_ms={out['staged']:.6f} host_packed_ms={out['host_packed']:.6f} "
+        f"(the host packer's path, for comparison only)")
+    return out
+
+
 def check_fused(clock):
     """Phase 4: the fused wave at the bench's width, unsigned and signed,
     against hashlib, verify_torch, verify_one and the quorum's plain
@@ -948,15 +1251,21 @@ def check_fused(clock):
                 and (counts == twin[1].numpy()).all()):
             raise AssertionError(f"fused {what}: quorum state != the plain version")
 
-    def timed(kwargs_of):
+    def timed(kwargs_of, verdicts=None):
         torch_sync()
         start = time.perf_counter()
         handles = [pipe.dispatch_wave(msg_sets[i % 2], quorum=quorum, **kwargs_of(i))
                    for i in range(FUSED_DEPTH)]
-        pipe.collect(handles[-1])
+        last = pipe.collect(handles[-1])
         piped = (time.perf_counter() - start) / FUSED_DEPTH
-        for h in handles:
-            pipe._release_lease(h)
+        # Every wave's digests, not only the last's: each wave's staged
+        # buffer was its own while its copy was in flight.
+        results = [pipe.collect(h) for h in handles[:-1]] + [last]
+        for i, res in enumerate(results):
+            if res.digests != expect[i % 2]:
+                raise AssertionError(f"pipelined fused wave {i}: digests != hashlib")
+            if verdicts is not None and not (res.verdicts == verdicts).all():
+                raise AssertionError(f"pipelined fused wave {i}: verdicts != the first wave's")
         for _ in handles:
             twin_wave()
         return piped
@@ -970,8 +1279,16 @@ def check_fused(clock):
         raise AssertionError("fused wave: posts or newbits != the plain version")
     same_state("wave")
     layout = handle.layout
+    # The first pass of FUSED_DEPTH waves in flight allocates their pinned
+    # staging buffers (torch's caching host allocator keeps them after);
+    # the second pass is the steady state that fused_wave_4096_ms reports.
+    first_pass = timed(lambda i: {})
     piped = timed(lambda i: {})
     same_state("pipelined waves")
+    split = fused_split(pipe, msg_sets, quorum)
+    for _ in range(FUSED_DEPTH):
+        twin_wave()
+    same_state("split waves")
 
     pubs, vmsgs, sigs, corrupt = signed_rows(FUSED_SIGNED)
     signed = (pubs, vmsgs, sigs)
@@ -995,8 +1312,13 @@ def check_fused(clock):
     if rejected < 1:
         raise AssertionError("signed fused wave: the kernel rejected no corrupt row")
     same_state("signed wave")
-    piped_signed = timed(lambda i: {"signed": signed})
+    first_pass_signed = timed(lambda i: {"signed": signed}, verdicts=res.verdicts)
+    piped_signed = timed(lambda i: {"signed": signed}, verdicts=res.verdicts)
     same_state("pipelined signed waves")
+    split_signed = fused_split(pipe, msg_sets, quorum, signed)
+    for _ in range(FUSED_DEPTH):
+        twin_wave()
+    same_state("split signed waves")
 
     # A chain: wave 2 (a batch-layout wave of 100) gates on wave 1's digests
     # and its own; a partial collect, then full ones.
@@ -1028,18 +1350,97 @@ def check_fused(clock):
     )
     if not all(checks):
         raise AssertionError(f"fused chain != host_fused_reference: {checks}")
+    tiny = tiny_wave_dispatch()
     bound_ms, signed_bound_ms = fused_bound(pipe, quorum, FUSED_SIGNED, clock[0])
+    copy_bytes, copy_ms = staged_copy(pipe, msg_sets[0], quorum)
+    signed_copy_bytes, signed_copy_ms = staged_copy(pipe, msg_sets[1], quorum, signed)
+    for _ in range(2):
+        twin_wave()
+    same_state("staged copy waves")
     log(f"fused_wave messages={FUSED_BATCH} msg_len={FUSED_MSG_LEN} layout={layout} "
         f"rows={handle.rows} quorum_waves={len(quorum)} depth={FUSED_DEPTH} "
         f"fused_wave_4096_ms={piped * 1e3:.6f} bound_ms={bound_ms:.6f} "
         f"signed_rows={FUSED_SIGNED} fused_wave_4096_signed_ms={piped_signed * 1e3:.6f} "
         f"signed_bound_ms={signed_bound_ms:.6f} (sums of the stages' bounds) "
+        f"first_pass_ms={first_pass * 1e3:.6f} signed {first_pass_signed * 1e3:.6f} "
+        f"(the same {FUSED_DEPTH} waves with their pinned buffers fresh) "
+        f"staged_copy: bytes={copy_bytes} ms={copy_ms:.6f} "
+        f"pinned_gb_s={copy_bytes / copy_ms / 1e6:.3f} signed bytes={signed_copy_bytes} "
+        f"ms={signed_copy_ms:.6f}; bound with the copy: "
+        f"{bound_ms + copy_ms:.6f}, signed {signed_bound_ms + signed_copy_ms:.6f} "
         f"corrupt_rows_rejected_by_the_kernel={rejected} of {len(corrupt)} "
-        f"verify_one_rows={len(sample)} chain: wave 2 layout={h2.layout} gated on "
+        f"verify_one_rows={len(sample)} pipelined waves' digests == hashlib on all "
+        f"{4 * FUSED_DEPTH}; chain: wave 2 layout={h2.layout} gated on "
         f"wave 1 rows, collect_ready + collect == host_fused_reference, leases released | "
         f"{nvidia_smi_line()}")
     return {"fused_wave_4096_ms": piped * 1e3, "fused_wave_4096_signed_ms": piped_signed * 1e3,
-            "bound_ms": bound_ms, "signed_bound_ms": signed_bound_ms}
+            "bound_ms": bound_ms, "signed_bound_ms": signed_bound_ms,
+            "split": split, "split_signed": split_signed, "tiny_wave": tiny,
+            "staged_copy": (copy_bytes, copy_ms, signed_copy_bytes, signed_copy_ms)}
+
+
+class LoggedWave:
+    """A hash wave as the logs keep it: a staged wave's raw bytes, offsets
+    and lengths (copied at dispatch; ``staged`` True), or a host-packed
+    (mesh) wave's words.  ``words()`` gives its packed (blocks, n_blocks)
+    on the host, as the card's pack kernel must write them;
+    ``staged_tensors()`` the pack kernel's inputs on the card."""
+
+    def __init__(self, packed):
+        self.layout = packed.layout
+        self.staged = hasattr(packed, "sections")
+        if self.staged:
+            self.shape = packed.blocks_shape
+            self.batch, self.bucket = packed.batch, packed.bucket
+            self.inputs = tuple(packed.section(k).copy() for k in ("raw", "offsets", "lengths"))
+            self._words = None
+        else:
+            self.shape = packed.blocks.shape
+            self._words = (packed.blocks.copy(), packed.n_blocks.copy())
+
+    @property
+    def key(self):
+        return (self.layout, tuple(self.shape))
+
+    def messages(self):
+        raw, offsets, lengths = self.inputs
+        return [raw[o:o + n].tobytes() for o, n in zip(offsets.tolist(), lengths.tolist())]
+
+    def words(self):
+        if self._words is None:
+            from mirbft_tpu_torch.ops.sha256 import pack_messages
+
+            packed = pack_messages(self.messages(), self.bucket, self.batch, layout=self.layout)
+            self._words = (packed.blocks, packed.n_blocks)
+        return self._words
+
+    def staged_tensors(self):
+        import torch
+
+        return [torch.from_numpy(a).to(DEVICE) for a in self.inputs]
+
+
+def log_wave(waves, packed):
+    """Count one dispatched hash wave in ``waves`` (key -> (dispatches, the
+    latest LoggedWave of that key))."""
+    logged = LoggedWave(packed)
+    count, _ = waves.get(logged.key, (0, None))
+    waves[logged.key] = (count + 1, logged)
+
+
+def wave_kernels(waves):
+    """The kernels a run's logged hash waves launch: each layout's SHA-256
+    kernel, and the pack kernel for staged waves."""
+    names = {f"sha256_{layout}" for (layout, _) in waves}
+    if any(logged.staged for _, logged in waves.values()):
+        names.add("pack_wave")
+    return names
+
+
+def staged_waves(waves):
+    """How many of a run's logged hash waves were staged (one pack launch
+    each)."""
+    return sum(count for count, logged in waves.values() if logged.staged)
 
 
 class FusedLog:
@@ -1059,7 +1460,7 @@ class FusedLog:
         self.cls = cls
         self.real = (cls.dispatch_wave, cls.collect, cls.collect_ready,
                      quorum.quorum_accumulate)
-        self.waves = {}  # (layout, blocks shape) -> (dispatches, (blocks, n_blocks))
+        self.waves = {}  # (layout, blocks shape) -> (dispatches, LoggedWave)
         self.signed = []  # signed rows per dispatch
         self.verdicts = []  # (valid, kernel verdict) per signed wave
         self.quorum = {}  # (W, D, N, K, P, B) -> (launches, inputs)
@@ -1077,9 +1478,7 @@ class FusedLog:
                              batch_bucket=None, packed=None, chain=None, groups=None):
             if packed is None:
                 packed = pipe.hasher.pack(messages, block_bucket, batch_bucket)
-            key = (packed.layout, packed.blocks.shape)
-            count, _ = log_.waves.get(key, (0, None))
-            log_.waves[key] = (count + 1, (packed.blocks.copy(), packed.n_blocks.copy()))
+            log_wave(log_.waves, packed)
             log_.signed.append(len(signed[0]) if signed else 0)
             handle = dispatch(pipe, messages, signed, quorum, block_bucket, batch_bucket,
                               packed, chain, groups)
@@ -1136,9 +1535,7 @@ class WaveLog:
         log_ = self
 
         def dispatch_packed(hasher, packed):
-            key = (packed.layout, packed.blocks.shape)
-            count, _ = log_.waves.get(key, (0, None))
-            log_.waves[key] = (count + 1, (packed.blocks.copy(), packed.n_blocks.copy()))
+            log_wave(log_.waves, packed)
             return log_.real(hasher, packed)
 
         self.cls.dispatch_packed = dispatch_packed
@@ -1237,15 +1634,14 @@ class SignClock:
 
 def counted_kernels():
     """name -> wrapper of every kernel whose launches the paths count."""
-    from mirbft_tpu_torch.ops import ed25519
-
-    from mirbft_tpu_torch.ops import quorum
+    from mirbft_tpu_torch.ops import ed25519, pack, quorum
     from mirbft_tpu_torch.parallel import shard_count
 
     kernels = {name: entry[0] for name, entry in kernel_table().items()}
     kernels["ed25519_verify"] = ed25519.ed25519_verify_kernel
     kernels["quorum_accumulate"] = quorum.quorum_accumulate
     kernels["mesh_count"] = shard_count
+    kernels["pack_wave"] = pack.pack_wave
     return kernels
 
 
@@ -1412,16 +1808,20 @@ def drive_paths():
             all_waves = dict(run_waves.waves)
             for key, (count, inputs) in run_fused.waves.items():
                 all_waves[key] = (all_waves.get(key, (0, None))[0] + count, inputs)
-            resolved = {f"sha256_{layout}" for (layout, _) in all_waves}
+            resolved = wave_kernels(all_waves)
+            hashes = {k for k in resolved if k.startswith("sha256_")}
             if run_verify.waves or any(run_fused.signed):
                 resolved.add("ed25519_verify")
             if run_fused.signed:
                 resolved.add("quorum_accumulate")
-            if pinned is not None and resolved != {pinned}:
-                raise AssertionError(f"{name}: waves resolved to {resolved}, not {pinned}")
+            if pinned is not None and hashes != {pinned}:
+                raise AssertionError(f"{name}: waves resolved to {hashes}, not {pinned}")
             for kernel, count in launches.items():
                 if (count > 0) != (kernel in resolved):
                     raise AssertionError(f"{name}: {kernel} launched {count} times")
+            if launches["pack_wave"] != staged_waves(all_waves):
+                raise AssertionError(f"{name}: {launches['pack_wave']} pack launches for "
+                                     f"{staged_waves(all_waves)} staged hash waves")
             if path_launches is None:
                 path_launches, waves, verify_inputs, quorum_inputs = (
                     launches, all_waves, run_verify.inputs, run_fused.quorum)
@@ -1586,8 +1986,9 @@ def fast_device_run(name, profile=None):
         "finals": [[seq, digest.hex()] for seq, digest in finals],
         "wall": wall,
         "launches": read_launches(),
-        "resolved": sorted({f"sha256_{layout}" for layout, _ in waves.waves}
+        "resolved": sorted(wave_kernels(waves.waves)
                            | ({"ed25519_verify"} if verify.waves else set())),
+        "staged_waves": staged_waves(waves.waves),
         "probes": measure_hash_probe.cache_info().misses - probes,
         "committed": [{str(c): n for c, n in node.committed_reqs.items()}
                       for node in recording.nodes],
@@ -1713,6 +2114,9 @@ def drive_fast_paths(host_fps):
             for kernel, count in launches.items():
                 if (count > 0) != (kernel in run["resolved"]):
                     raise AssertionError(f"{name}: {kernel} launched {count} times")
+            if launches["pack_wave"] != run["staged_waves"]:
+                raise AssertionError(f"{name}: {launches['pack_wave']} pack launches for "
+                                     f"{run['staged_waves']} staged hash waves")
             if path_launches is None:
                 path_launches, waves, verify_inputs = launches, run_waves, run_inputs
             elif launches != path_launches:
@@ -1809,6 +2213,72 @@ def mux_rows(tag, r):
             for g in range(MUX_GROUPS)]
 
 
+def signed_mux_envelopes():
+    """The signed mux wave's requests: MUX_SIGNED_CLIENTS clients a group,
+    MUX_SIGNED_REQS sealed requests each, group 0's CORRUPT_CLIENT with a
+    tampered R.  Returns (keys, envelopes, provider, signed rows)."""
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.processor.verify import seal, signing_payload
+
+    keys = {}
+    envelopes = {}
+    for g in range(MUX_GROUPS):
+        for c in range(MUX_SIGNED_CLIENTS):
+            cid = 100 * g + c
+            pub, sign = e.keypair_from_seed(bytes([g + 1, c + 1]) * 16)
+            keys[cid] = pub
+            for r in range(MUX_SIGNED_REQS):
+                payload = b"mux-signed-%d-%d" % (cid, r)
+                sig = sign(signing_payload(cid, r, payload))
+                if g == 0 and c == CORRUPT_CLIENT:
+                    sig = sig[:5] + bytes([sig[5] ^ 0x10]) + sig[6:]  # R tampered, S < L
+                envelopes[cid, r] = seal(payload, sig)
+
+    def provider(client_id, start_req):
+        return [(r, envelopes[client_id, r])
+                for r in range(start_req, MUX_SIGNED_REQS) if (client_id, r) in envelopes]
+
+    return keys, envelopes, provider, MUX_GROUPS * MUX_SIGNED_CLIENTS * MUX_SIGNED_REQS
+
+
+def signed_mux_wave(keys, provider, n_signed):
+    """One mux wave carrying both tenants' pending signatures, on a fresh
+    pipeline, mux and planes, as a cohost host's first signed wave: each
+    tenant's digest against hashlib.  Returns (seconds from the enqueue to
+    both tenants' collects, the pipeline, the tenants' auth planes)."""
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline
+    from mirbft_tpu_torch.testengine.crypto import (
+        DeviceAuthPlane,
+        DeviceHashPlane,
+        SharedWaveMux,
+    )
+
+    pipe = FusedCryptoPipeline(n_groups=MUX_GROUPS, device=DEVICE)
+    mux = SharedWaveMux(pipe, wave_size=MUX_GROUPS, adaptive=False)
+    auths, tenants = [], []
+    for g in range(MUX_GROUPS):
+        auth = DeviceAuthPlane(provider, device=True, wave_size=2 * n_signed,
+                               device_floor=1, lookahead=MUX_SIGNED_REQS, torch_device=DEVICE)
+        hash_plane = DeviceHashPlane(device=True, wave_size=MUX_GROUPS, device_floor=1,
+                                     torch_device=DEVICE)
+        hash_plane.attach_mux(mux, g, auth)
+        for c in range(MUX_SIGNED_CLIENTS):
+            auth.register(100 * g + c, keys[100 * g + c])
+            auth.note(100 * g + c, 0)
+        auths.append(auth)
+        tenants.append(hash_plane)
+    hash_batches = [[[b"signed-wave-%d" % g, bytes([g]) * MUX_MSG_LEN]] for g in range(MUX_GROUPS)]
+    torch_sync()
+    start = time.perf_counter()
+    for g in range(MUX_GROUPS):
+        tenants[g].enqueue(hash_batches[g])
+    for g in range(MUX_GROUPS):
+        got = tenants[g].hash_batches(hash_batches[g])
+        if got != [hashlib.sha256(b"".join(hash_batches[g][0])).digest()]:
+            raise AssertionError(f"signed mux wave: group {g} digest != hashlib")
+    return time.perf_counter() - start, pipe, auths
+
+
 def check_mux_waves():
     """Phase 7, part 1: the cohost plane's shared wave on the card at the
     bench's anatomy shape, against hashlib and two solo per-group fused
@@ -1891,50 +2361,9 @@ def check_mux_waves():
         f"solo/mux={solo_s / muxed_s:.4f} | {nvidia_smi_line()}")
 
     # One mux wave that carries both tenants' pending signatures.
-    keys = {}
-    envelopes = {}
-    for g in range(MUX_GROUPS):
-        for c in range(MUX_SIGNED_CLIENTS):
-            cid = 100 * g + c
-            pub, sign = e.keypair_from_seed(bytes([g + 1, c + 1]) * 16)
-            keys[cid] = pub
-            for r in range(MUX_SIGNED_REQS):
-                payload = b"mux-signed-%d-%d" % (cid, r)
-                sig = sign(signing_payload(cid, r, payload))
-                if g == 0 and c == CORRUPT_CLIENT:
-                    sig = sig[:5] + bytes([sig[5] ^ 0x10]) + sig[6:]  # R tampered, S < L
-                envelopes[cid, r] = seal(payload, sig)
-
-    def provider(client_id, start_req):
-        return [(r, envelopes[client_id, r])
-                for r in range(start_req, MUX_SIGNED_REQS) if (client_id, r) in envelopes]
-
-    pipe = FusedCryptoPipeline(n_groups=MUX_GROUPS, device=DEVICE)
-    mux = SharedWaveMux(pipe, wave_size=MUX_GROUPS, adaptive=False)
-    auths, tenants = [], []
-    n_signed = MUX_GROUPS * MUX_SIGNED_CLIENTS * MUX_SIGNED_REQS
-    for g in range(MUX_GROUPS):
-        auth = DeviceAuthPlane(provider, device=True, wave_size=2 * n_signed,
-                               device_floor=1, lookahead=MUX_SIGNED_REQS, torch_device=DEVICE)
-        hash_plane = DeviceHashPlane(device=True, wave_size=MUX_GROUPS, device_floor=1,
-                                     torch_device=DEVICE)
-        hash_plane.attach_mux(mux, g, auth)
-        for c in range(MUX_SIGNED_CLIENTS):
-            auth.register(100 * g + c, keys[100 * g + c])
-            auth.note(100 * g + c, 0)
-        auths.append(auth)
-        tenants.append(hash_plane)
-    hash_batches = [[[b"signed-wave-%d" % g, bytes([g]) * MUX_MSG_LEN]] for g in range(MUX_GROUPS)]
+    keys, envelopes, provider, n_signed = signed_mux_envelopes()
     with FusedLog() as flog:
-        torch_sync()
-        start = time.perf_counter()
-        for g in range(MUX_GROUPS):
-            tenants[g].enqueue(hash_batches[g])
-        for g in range(MUX_GROUPS):
-            got = tenants[g].hash_batches(hash_batches[g])
-            if got != [hashlib.sha256(b"".join(hash_batches[g][0])).digest()]:
-                raise AssertionError(f"signed mux wave: group {g} digest != hashlib")
-        signed_s = time.perf_counter() - start
+        signed_s, pipe, auths = signed_mux_wave(keys, provider, n_signed)
     if flog.signed != [n_signed] or [a.verified_count for a in auths] != \
             [n_signed // MUX_GROUPS] * MUX_GROUPS:
         raise AssertionError(f"signed mux wave: rows per wave {flog.signed}, verified "
@@ -2096,7 +2525,7 @@ def drive_mux_recordings(host_fps):
     all_waves = dict(run_waves.waves)
     for key, (count, inputs) in run_fused.waves.items():
         all_waves[key] = (all_waves.get(key, (0, None))[0] + count, inputs)
-    resolved = {f"sha256_{layout}" for (layout, _) in all_waves}
+    resolved = wave_kernels(all_waves)
     if run_verify.waves or any(run_fused.signed):
         resolved.add("ed25519_verify")
     if run_fused.signed:
@@ -2104,6 +2533,9 @@ def drive_mux_recordings(host_fps):
     for kernel, count in launches.items():
         if (count > 0) != (kernel in resolved):
             raise AssertionError(f"mux recordings: {kernel} launched {count} times")
+    if launches["pack_wave"] != staged_waves(all_waves):
+        raise AssertionError(f"mux recordings: {launches['pack_wave']} pack launches for "
+                             f"{staged_waves(all_waves)} staged hash waves")
     if dispatches <= 0 or launches["quorum_accumulate"] != dispatches or \
             run_waves.waves:
         raise AssertionError(f"mux recordings: {dispatches} mux waves, {launches} launches, "
@@ -2405,6 +2837,46 @@ def embedded_runs(ticks, runs):
     return 0
 
 
+HOST_COST_SIGNED_WAVES = 5
+
+
+def host_costs():
+    """``chip_smoke.py --host-costs``: the host costs a wave's staging
+    changes, in a form that also runs against an older tree of the package
+    (copy the script into that tree's root): the tiny wave's dispatch, the
+    signed mux wave on HOST_COST_SIGNED_WAVES fresh pipelines in turn, and
+    one embedded-node run's mean hash dispatch seconds (the
+    ``hash_dispatch_seconds`` histogram: staging or packing, copies,
+    launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from mirbft_tpu_torch import metrics
+    from mirbft_tpu_torch.ops import _build
+
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    log(f"host costs: {nvidia_smi_line()}; build {_build.build_all()}; package {HERE}")
+    tiny_wave_dispatch()
+    keys, _, provider, n_signed = signed_mux_envelopes()
+    waves = [signed_mux_wave(keys, provider, n_signed)[0] * 1e3
+             for _ in range(HOST_COST_SIGNED_WAVES)]
+    log(f"signed_mux_wave_ms on {len(waves)} fresh pipelines in turn: "
+        f"{[round(w, 6) for w in waves]} median={float(np.median(waves)):.6f}")
+    keys, envelopes, forged = embedded_requests()
+    metrics.default_registry.reset()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "chiprun_out")) as tmp:
+        run = run_embedded_cluster(tmp, keys, envelopes, forged)
+    snap = metrics.snapshot()
+    means = {name: snap.get(f"{name}_sum", 0.0) / max(snap.get(f"{name}_count", 0), 1) * 1e3
+             for name in ("hash_dispatch_seconds", "hash_pack_seconds",
+                          "hash_device_dispatch_seconds")}
+    log(f"embedded_node wall_s={run['wall']:.3f} epochs={run['epochs']} hash dispatches="
+        f"{snap.get('hash_dispatch_seconds_count', 0)} mean ms: "
+        + " ".join(f"{k}={v:.6f}" for k, v in means.items()))
+    return 0
+
+
 def drive_embedded_node(tmp):
     """Phase 7, part 3: run_embedded_cluster on the card at c2's load.
     Every node's state must hold all 800 requests: each applied exactly
@@ -2440,7 +2912,7 @@ def drive_embedded_node(tmp):
                              f"the forgery on each of {NODE_COUNT} nodes")
     if snap.get("hash_dispatch_seconds_count", 0) <= 0:
         raise AssertionError("embedded nodes: no hash dispatch was timed")
-    resolved = {f"sha256_{layout}" for (layout, _) in run_waves.waves} | {"ed25519_verify"}
+    resolved = wave_kernels(run_waves.waves) | {"ed25519_verify"}
     for kernel, count in launches.items():
         if (count > 0) != (kernel in resolved):
             raise AssertionError(f"embedded nodes: {kernel} launched {count} times")
@@ -2459,6 +2931,7 @@ def drive_embedded_node(tmp):
         f"(rows, real rows)={run_verify.waves} real rows the kernel rejected="
         f"{kernel_rejected} (the forgery, once a node; propose raised AuthenticationError) "
         f"hash_dispatch_seconds_count={int(snap['hash_dispatch_seconds_count'])} "
+        f"hash_dispatch_seconds_sum={snap.get('hash_dispatch_seconds_sum', 0.0):.6f} "
         f"launches={launches} hash waves="
         f"{ {f'{k[0]}{list(k[1])}': v[0] for k, v in run_waves.waves.items()} } "
         f"| {nvidia_smi_line()}")
@@ -2659,8 +3132,9 @@ def check_mesh_count(mode, tensors, worst):
 
 
 def time_mesh_count(mode, tensors):
-    """(ms, plain_ms) of one count launch (CUDA events, the launcher's
-    zeroing of the count included) and of its plain version."""
+    """(ms, plain_ms) of one count (CUDA events over back-to-back counts,
+    each launch in turn after the one before, as a path's count follows
+    its verify or hash kernel) and of its plain version."""
     from mirbft_tpu_torch.ops.crossover import time_cuda
     from mirbft_tpu_torch.parallel import shard_count, shard_count_torch
 
@@ -2668,6 +3142,81 @@ def time_mesh_count(mode, tensors):
     ms = time_cuda(lambda: shard_count(mode, a, *rest)) * 1e3
     plain_ms = time_plain(lambda: shard_count_torch(mode, a, *rest), repeats=5) * 1e3
     return ms, plain_ms
+
+
+def count_after_verify_ms(verify_arrays, part, tensors, repeats=9):
+    """Median ms of one verdict count enqueued right after the shard's
+    verify kernel, as the mesh paths launch it: CUDA events bracket the
+    count alone, while the verify kernel holds the stream."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.parallel import shard_count
+
+    inputs = [torch.from_numpy(a[part]).to(DEVICE) for a in verify_arrays]
+    ok, rest = tensors[0].clone(), tensors[1:]
+    times = []
+    for _ in range(repeats + 1):
+        e.ed25519_verify_kernel(*inputs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        shard_count("verdicts", ok, *rest)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+MESH_COUNT_TRACED = 8
+
+
+def traced_counts_child():
+    """``chip_smoke.py --count-trace``: count_operations in digest and
+    verdict mode at one block (33 rows) and at several (4,096), printed
+    as one JSON line [[mode, rows, ops], ...]."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 9)
+    out = [[mode, rows, count_operations(mode, mesh_count_case(rng, mode, rows, "random"))]
+           for mode in ("digests", "verdicts") for rows in (MESH_COUNT_ROWS[2], MESH_LONG_WAVE)]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def traced_counts_in_child():
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--count-trace"],
+                         cwd=HERE, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"the traced counts failed: {out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def count_operations(mode, tensors):
+    """(kernel launches the wrapper counted, the trace's mesh_count_kernel
+    records, its memset records, its other device records) of
+    MESH_COUNT_TRACED counts under torch.profiler: one launch and nothing
+    else on the stream a count."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from mirbft_tpu_torch.parallel import shard_count
+
+    a, rest = tensors[0].clone(), tensors[1:]
+    shard_count(mode, a, *rest)  # the stream's accumulator exists before the window
+    torch_sync()
+    before = shard_count.launches
+    path = os.path.join(HERE, "chiprun_out", f"trace_mesh_count_{mode}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(MESH_COUNT_TRACED):
+            shard_count(mode, a, *rest)
+        torch_sync()
+    prof.export_chrome_trace(path)
+    _, names, _ = device_busy(path)
+    kernels = sum(v for k, v in names.items() if "mesh_count_kernel" in k)
+    memsets = sum(v for k, v in names.items() if "emset" in k)
+    return shard_count.launches - before, kernels, memsets, sum(names.values()) - kernels
 
 
 def check_mesh(worst):
@@ -2729,8 +3278,8 @@ def check_mesh(worst):
         timings[f"{rows}_rows_ms"] = ms
         log(f"mesh {name}: sharded_sha256 {list(blocks.shape)} == sha256_batch and hashlib "
             f"({len(sample)} sampled rows); verify step counts {counts} for 0, 1, 2 corrupted; "
-            f"kernel mesh_count digests rows={rows} ms={ms:.6f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={bound_ms:.9f} ({by})")
+            f"kernel mesh_count digests rows={rows} ms={ms:.6f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.9f} ({by})")
 
     pubs, msgs, sigs, corrupt = signed_rows(MESH_SIGNED)
     batch = -(-(MESH_SIGNED + MESH_PADDING) // n) * n
@@ -2753,6 +3302,18 @@ def check_mesh(worst):
             got = {mask: check_mesh_count(mode, mesh_count_case(rng, mode, rows, mask), worst)
                    for mask in ("all", "none", "random")}
             log(f"kernel mesh_count {mode} rows={rows}: counts {got} == plain on the card")
+    # One block (one CTA stores the count) and several (the last block's
+    # ticket): each count one launch, no memset.  Traced in a process of
+    # its own: in the smoke's process, after its earlier phases,
+    # torch.profiler has dropped device records.
+    for mode, rows, ops in traced_counts_in_child():
+        log(f"kernel mesh_count {mode} rows={rows}: {MESH_COUNT_TRACED} counts traced in a "
+            f"process of its own: wrapper launches={ops[0]} mesh_count_kernel "
+            f"records={ops[1]} memset records={ops[2]} other device records={ops[3]}")
+        if tuple(ops) != (MESH_COUNT_TRACED, MESH_COUNT_TRACED, 0, 0):
+            raise AssertionError(f"mesh_count {mode} rows={rows}: {ops} (launches, kernel "
+                                 f"records, memsets, other records) for "
+                                 f"{MESH_COUNT_TRACED} counts")
     counters = graft_entry.dryrun_multichip(n, device=DEVICE)
     log(f"mesh dryrun_multichip({n}): {counters}")
     return timings
@@ -2806,7 +3367,7 @@ def drive_mesh(host_fps, worst):
         mesh = {k: int(snap.get(k, 0)) for k in (
             "mesh_hash_dispatches", "mesh_hashed_messages", "mesh_verify_dispatches",
             "mesh_verified_signatures")}
-        resolved = {f"sha256_{layout}" for layout, _ in run_waves.waves}
+        resolved = wave_kernels(run_waves.waves)
         if run_verify.waves:
             resolved |= {"ed25519_verify", "mesh_count"}
         for kernel, count in launches.items():
@@ -2832,6 +3393,20 @@ def drive_mesh(host_fps, worst):
             f"real rows the host screen rejected={screened} the kernels rejected={rejected}")
         results[name] = (launches, dict(run_waves.waves), run_verify.inputs, None)
     return results, timings
+
+
+def fused_alone():
+    """``chip_smoke.py --fused``: the builds and phase 4 alone (the fused
+    wave's checks, its times and its ``fused_split`` lines)."""
+    from mirbft_tpu_torch.ops import _build
+
+    smi = nvidia_smi_line()
+    log(f"fused alone: {smi}; build {_build.build_all()}")
+    log(_build.ptxas_report("pack").strip())
+    check_pack()
+    check_fused((sm_clock_hz(),))
+    log(smi)
+    return 0
 
 
 def mesh_alone():
@@ -2893,10 +3468,12 @@ def report_mesh(paths, worst, timings):
                 tensors = [ok, valid, real]
                 check_mesh_count("verdicts", tensors, worst)
                 ms, plain_ms = time_mesh_count("verdicts", tensors)
+                after_ms = count_after_verify_ms(packed[:5], part, tensors)
                 bound_ms, by = mesh_count_bound("verdicts", shard)
                 log(f"path-wave {path} {name} verdicts shard={i} rows={shard} "
                     f"real_rows={int(packed[6][part].sum())} launches={count} "
-                    f"ms={ms:.6f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.9f} ({by})")
+                    f"ms={ms:.6f} after_verify_ms={after_ms:.6f} plain_ms={plain_ms:.3f} "
+                    f"bound_ms={bound_ms:.9f} ({by})")
                 tot["ms"] += count * ms
                 tot["plain_ms"] += count * plain_ms
                 tot["bound_ms"] += count * bound_ms
@@ -2936,11 +3513,13 @@ def report(paths, worst, clock, mesh_timings):
                "cycles_per_round": 0.0, "chain_floor_ms": 0.0}
         n = 0
         for path, (_, waves, _, _) in paths.items():
-            for (wave_layout, shape), (count, (blocks, n_blocks)) in waves.items():
+            for (wave_layout, shape), (count, logged) in waves.items():
                 if wave_layout != layout:
                     continue
+                blocks, n_blocks = logged.words()
                 bt, nt = wave_to_torch(blocks, n_blocks, DEVICE)
-                got, want = kernel(bt, nt), plain(bt, nt)
+                want, plain_s = plain_once(lambda: plain(bt, nt))
+                got = kernel(bt, nt)
                 torch_sync()
                 err = int(np.abs(u32(got).astype(np.int64) - u32(want).astype(np.int64)).max())
                 worst[name] = max(worst[name], err)
@@ -2949,7 +3528,7 @@ def report(paths, worst, clock, mesh_timings):
                 L = shape[1]
                 bound_ms, by = bound_of(n_blocks, L, got.numel())
                 ms = time_cuda(lambda: kernel(bt, nt)) * 1e3
-                plain_ms = time_plain(lambda: plain(bt, nt)) * 1e3
+                plain_ms = plain_s * 1e3
                 cycles, floor_ms = chain_of(ms, n_blocks, L, clock)
                 log(f"path-wave {path} {name} shape={list(shape)} launches={count} "
                     f"live_blocks={int(np.minimum(n_blocks, L).sum())} "
@@ -2979,10 +3558,52 @@ def report(paths, worst, clock, mesh_timings):
             "chain_floor_ms": tot["chain_floor_ms"] / n,
             "cycles_per_round": tot["cycles_per_round"] / n,
         })
+    kernels.append(report_pack(paths, worst))
     kernels.append(report_ed25519(paths, worst, clock))
     kernels.append(report_quorum(paths, worst))
     kernels.append(report_mesh(paths, worst, mesh_timings))
     return kernels
+
+
+def report_pack(paths, worst):
+    """The pack kernel's entry: timed on each staged hash wave shape the
+    paths launched it on (the wave's own bytes), held to its plain version
+    and the host packer there, averaged over the launches."""
+    name = "pack_wave"
+    launches = sum(entry[0][name] for entry in paths.values())
+    if launches <= 0:
+        raise AssertionError(f"{name} was launched on no path")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    n = 0
+    for path, (_, waves, _, _) in paths.items():
+        for shape, (count, logged) in (waves or {}).items():
+            if not logged.staged:
+                continue
+            ms, plain_ms, bound_ms, err = pack_case(logged.staged_tensors(), logged.batch,
+                                                    logged.bucket, logged.layout,
+                                                    logged.words())
+            worst[name] = max(worst.get(name, 0), err)
+            log(f"path-wave {path} {name} {logged.layout}{list(shape[1])} "
+                f"rows={len(logged.inputs[2])} launches={count} ms={ms:.6f} "
+                f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.9f} (bytes)")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bound_ms"] += count * bound_ms
+            n += count
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/pack.cu",
+        "replaces": "none: host work of mirbft_tpu/ops/sha256.py:242 (pack_messages)",
+        "launches": launches,
+        "launches_by_path": {p: entry[0][name] for p, entry in paths.items()},
+        "max_abs_err": worst[name],
+        "ms": tot["ms"] / n,
+        "plain_ms": tot["plain_ms"] / n,
+        "bound_ms": tot["bound_ms"] / n,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
 
 
 def report_ed25519(paths, worst, clock):
@@ -3003,14 +3624,15 @@ def report_ed25519(paths, worst, clock):
     for path, (_, _, inputs, _) in paths.items():
         for rows, (count, packed) in (inputs or {}).items():
             tensors = [torch.from_numpy(a).to(DEVICE) for a in packed[:5]]
-            got, want = e.ed25519_verify_kernel(*tensors), e.verify_torch(*tensors)
+            want, plain_s = plain_once(lambda: e.verify_torch(*tensors))
+            got = e.ed25519_verify_kernel(*tensors)
             torch_sync()
             err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
             worst[name] = max(worst[name], err)
             if err:
                 raise AssertionError(f"{name}: kernel != plain on a path wave of {rows} rows")
             ms = time_cuda(lambda: e.ed25519_verify_kernel(*tensors), repeats=5) * 1e3
-            plain_ms = time_plain(lambda: e.verify_torch(*tensors)) * 1e3
+            plain_ms = plain_s * 1e3
             bound_ms, by = verify_bound(rows, clock[0])
             issue_ms = verify_issue_bound(rows, clock)
             log(f"path-wave {path} {name} rows={rows} valid_rows={int(packed[5].sum())} "
@@ -3102,6 +3724,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--traced-fast"]:
         return traced_fast_child(sys.argv[2])
+    if sys.argv[1:2] == ["--count-trace"]:
+        return traced_counts_child()
     try:
         import torch
     except ImportError:
@@ -3118,6 +3742,10 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--mesh"]:
         return mesh_alone()
+    if sys.argv[1:2] == ["--fused"]:
+        return fused_alone()
+    if sys.argv[1:2] == ["--host-costs"]:
+        return host_costs()
     if sys.argv[1:2] == ["--embedded"]:
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         return embedded_runs([float(t) for t in sys.argv[2].split(",")], int(sys.argv[3]))
@@ -3163,6 +3791,7 @@ def main() -> int:
     log(_build.ptxas_report("ed25519").strip())
     log(_build.ptxas_report("quorum").strip())
     log(_build.ptxas_report("mesh").strip())
+    log(_build.ptxas_report("pack").strip())
     for name, (ops, static) in sass_mix(_build.so_path("sha256"), list(kernel_table())).items():
         int_ops = {k: v for k, v in ops.items() if k in INTEGER_ALU}
         log(f"sass {name}: {sum(ops.values())} instructions, integer ALU "
@@ -3212,6 +3841,7 @@ def main() -> int:
 
     lap("device_build_probes")
     worst = check_kernels(clock)
+    worst["pack_wave"] = check_pack()
     worst["ed25519_verify"] = check_ed25519(clock)
     worst["quorum_accumulate"] = check_quorum()
     check_fused(clock)

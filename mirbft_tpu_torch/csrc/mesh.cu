@@ -18,18 +18,26 @@
 // 8 expected), a verdict row reads 3 bytes and writes one; a row's
 // operations are a handful of integer instructions.  At 3.35 TB/s even
 // 4,096 digest rows are 0.08 us of memory traffic, under the launch's own
-// cost, so the design keeps to one pass and one launch: a grid-stride loop
-// over the rows (16-byte loads of a digest row's two halves), each thread's
-// count summed by warp shuffles, the warps' sums by the first warp, and one
-// integer atomicAdd a block into the shard's count word, which the launcher
-// zeroes first on the same stream.  Integer sums are exact in any order, so
-// the count is the same whatever order the blocks finish in.
+// cost, so the design keeps to one pass and ONE operation on the stream: a
+// grid-stride loop over the rows (16-byte loads of a digest row's two
+// halves), each thread's count summed by warp shuffles, the warps' sums by
+// the first warp.  A launch of one block stores its sum as the count.  In a
+// launch of several, each block adds its sum and a ticket of one in a
+// single 64-bit atomicAdd on the stream's accumulator word (the sum in the
+// low half, the blocks done in the high half); the block that draws the
+// last ticket holds the whole count in what the add returned, stores it and
+// zeroes the accumulator for the stream's next launch.  So no block waits
+// on another, nothing zeroes the count before the launch, and the
+// accumulator is zeroed once, when the wrapper first allocates it.
+// Integer sums are exact in any order, so the count is the same whatever
+// order the blocks finish in.
 //
 // Outside the kernel and its launcher the code is plain C++: built for the
 // host with a C++ compiler (outside __CUDACC__), `count_host` runs the same
 // grid (`grid_of`) thread by thread, each thread's grid-stride rows in turn
-// and the sums in the order the card's reduction adds them, which is how
-// the design is checked without a card.
+// and the sums in the order the card's reduction adds them, and each
+// block's add into the accumulator in block order, which is how the design
+// is checked without a card.
 //
 // Plain C interface for ctypes: the launcher takes device pointers, the
 // row count and a cudaStream_t, launches on that stream without
@@ -60,7 +68,19 @@ struct Args {
   const uint8_t* real;       // [rows], kVerdicts
   long long rows;
   uint32_t* count;  // one word
+  unsigned long long* acc;  // the stream's accumulator: 0 between launches
 };
+
+// The accumulator's add of one block of a launch of several: its sum in the
+// low half, one ticket in the high half.
+__host__ __device__ inline unsigned long long ticket_of(uint32_t block_sum) {
+  return (1ull << 32) | (unsigned long long)block_sum;
+}
+
+// The last of `blocks` blocks is the one whose add found blocks - 1 tickets.
+__host__ __device__ inline bool is_last(unsigned long long before, long long blocks) {
+  return (long long)(before >> 32) == blocks - 1;
+}
 
 // Blocks of a launch over `rows` rows (at least one, so that a launch over
 // no rows still runs the reduction's code path).
@@ -110,10 +130,11 @@ __host__ __device__ inline uint32_t thread_count(const Args& a, long long first,
 
 #ifndef __CUDACC__
 // The launch on the host: the same grid, each thread's rows in turn, the
-// warps' and the block's sums in the order the card adds them, one add a
-// block into the zeroed count.
+// warps' and the block's sums in the order the card adds them; a launch of
+// one block stores its sum, a launch of several adds each block's ticket
+// into the accumulator in block order, and the last block stores the count
+// and zeroes the accumulator.
 inline void count_host(const Args& a) {
-  *a.count = 0;
   const long long blocks = grid_of(a.rows), stride = blocks * kThreads;
   for (long long b = 0; b < blocks; ++b) {
     uint32_t warp_sums[kWarps];
@@ -128,7 +149,17 @@ inline void count_host(const Args& a) {
     for (int w = 0; w < kWarps; ++w) lanes[w] = warp_sums[w];
     for (int off = 16; off > 0; off >>= 1)
       for (int l = 0; l + off < 32; ++l) lanes[l] += lanes[l + off];
-    *a.count += lanes[0];
+    const uint32_t block_sum = lanes[0];
+    if (blocks == 1) {
+      *a.count = block_sum;
+      continue;
+    }
+    const unsigned long long before = *a.acc;
+    *a.acc += ticket_of(block_sum);
+    if (is_last(before, blocks)) {
+      *a.count = (uint32_t)before + block_sum;
+      *a.acc = 0;
+    }
   }
 }
 #endif  // !__CUDACC__
@@ -154,15 +185,27 @@ __global__ void __launch_bounds__(mesh::kThreads) mesh_count_kernel(const mesh::
   __syncthreads();
   if (warp == 0) {
     const uint32_t block = warp_sum(lane < mesh::kWarps ? warp_sums[lane] : 0u);
-    if (lane == 0) atomicAdd(a.count, block);
+    if (lane == 0) {
+      if (gridDim.x == 1) {
+        *a.count = block;
+      } else {
+        const unsigned long long before = atomicAdd(a.acc, mesh::ticket_of(block));
+        if (mesh::is_last(before, gridDim.x)) {
+          *a.count = (uint32_t)before + block;
+          *a.acc = 0ull;
+        }
+      }
+    }
   }
 }
 
 }  // namespace
 
+// `acc` is the stream's accumulator word (8 bytes, zero before the first
+// launch; every launch leaves it zero).
 extern "C" int mirbft_mesh_count(int mode, const void* words, const void* expected, void* ok,
                                  const void* valid, const void* real, long long rows,
-                                 void* count, void* stream) {
+                                 void* count, void* acc, void* stream) {
   if (mode != mesh::kDigests && mode != mesh::kVerdicts) return (int)cudaErrorInvalidValue;
   const mesh::Args a{mode,
                      (const uint32_t*)words,
@@ -171,9 +214,8 @@ extern "C" int mirbft_mesh_count(int mode, const void* words, const void* expect
                      (const uint8_t*)valid,
                      (const uint8_t*)real,
                      rows,
-                     (uint32_t*)count};
-  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(uint32_t), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
+                     (uint32_t*)count,
+                     (unsigned long long*)acc};
   mesh_count_kernel<<<(unsigned)mesh::grid_of(rows), mesh::kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -65,9 +65,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_quorum_plan": ((_I64, _I64, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
+    "pack": {
+        "mirbft_pack_wave": (
+            (_P, _I64, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P, _P, _P), ctypes.c_int,
+        ),
+        "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    },
     "mesh": {
         "mirbft_mesh_count": (
-            (ctypes.c_int, _P, _P, _P, _P, _P, _I64, _P, _P), ctypes.c_int,
+            (ctypes.c_int, _P, _P, _P, _P, _P, _I64, _P, _P, _P), ctypes.c_int,
         ),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },

@@ -14,7 +14,10 @@ One crypto wave without host round trips between its stages:
   together; nothing before it waits for the card.
 
 The JAX package runs the three stages as one jitted program.  The port
-enqueues them on the current CUDA stream, in order: the copies in, the
+enqueues them on the current CUDA stream, in order: one copy of the
+staged wave in (its raw bytes and row index, the quorum stream and the
+verify inputs, all in one pinned buffer: ``ops/pack.py``), the pack kernel
+that writes the wave's layout (``csrc/pack.cu``), the
 SHA-256 kernel the packed layout resolves to (``csrc/sha256.cu``; a lanes
 wave is then permuted to one digest row per message, as the JAX program
 does outside its Pallas kernel), the Ed25519 verify kernel when the wave
@@ -37,7 +40,16 @@ import numpy as np
 
 from . import quorum as quorum_ops
 from .quorum import MASK_WORDS, host_accumulate
-from .sha256 import DeviceWords, PackedWave, TorchHasher, digests_from_words
+from .pack import StagedWave
+from .sha256 import DeviceWords, TorchHasher, digests_from_words
+
+# The staged sections of a fused wave beside the hash wave's own: the
+# quorum stream (``_pack_quorum``'s arrays, in its order) and the verify
+# inputs (``Ed25519BatchVerifier.pack_inputs``' five arrays).
+QUORUM_SECTIONS = ("sources", "touches", "valid", "digest_rows", "claimed", "touch_groups")
+VERIFY_SECTIONS = ("ax", "ay", "r_bytes", "s_bits", "h_bits")
+# The hash wave's own sections, which the pack kernel reads by pointer.
+_HASH_SECTIONS = ("raw", "offsets", "lengths")
 
 
 def _metrics():
@@ -48,21 +60,6 @@ def _metrics():
 
 def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
-
-
-def _to_device(arr: np.ndarray, device):
-    """A host array -> a tensor with the same bits (uint32 as int32) on
-    ``device``.  To the card through pinned memory without waiting, so a
-    dispatch never synchronises; on the CPU a tensor over the array."""
-    import torch
-
-    arr = np.ascontiguousarray(arr)
-    if arr.dtype == np.uint32:
-        arr = arr.view(np.int32)
-    t = torch.from_numpy(arr)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 def _hash_stage(blocks, n_blocks, layout: str):
@@ -264,7 +261,7 @@ class FusedCryptoPipeline:
         quorum: Optional[Sequence] = None,
         block_bucket: Optional[int] = None,
         batch_bucket: Optional[int] = None,
-        packed: Optional[PackedWave] = None,
+        packed: Optional[StagedWave] = None,
         chain: Optional[FusedDispatch] = None,
         groups: Optional[Sequence[int]] = None,
     ) -> FusedDispatch:
@@ -287,12 +284,7 @@ class FusedCryptoPipeline:
         ``chain.rows`` are this wave's."""
         if packed is None:
             packed = self.hasher.pack(messages, block_bucket, batch_bucket)
-        if packed.layout == "lanes":
-            from .sha256_pallas_lanes import TILE
-
-            batch_rows = packed.blocks.shape[0] * TILE
-        else:
-            batch_rows = packed.blocks.shape[0]
+        batch_rows = packed.batch
         # Per-row group column over the padded row space.  Untagged waves
         # are all group 0, padding included; tagged waves mark padding rows
         # -1 — fail-closed against a gate that references a padding row
@@ -327,46 +319,54 @@ class FusedCryptoPipeline:
                 prev_groups = np.full(1, -1, dtype=np.int32)
         row_groups = np.concatenate([prev_groups, cur_groups])
 
-        verify_inputs = None
+        verify_names = ()
         if signed and len(signed[0]):
             pubs, vmsgs, sigs = signed
             *verify_inputs, valid = self.verifier.pack_inputs(pubs, vmsgs, sigs)
             verify_count = len(pubs)
+            verify_names = VERIFY_SECTIONS
+            for name, arr in zip(verify_names, verify_inputs):
+                packed.add(name, arr)
         else:
             valid = np.zeros(1, dtype=bool)
             verify_count = 0
 
         quorum_arrays = self._pack_quorum(quorum or [], total_rows, row_offset)
+        for name, arr in zip(QUORUM_SECTIONS, quorum_arrays):
+            packed.add(name, arr)
+        packed.add("row_groups", row_groups)
+        if prev_words is None:
+            # The one-row dummy digest, zero, rides the staged copy.
+            packed.reserve("prev_words", np.int32, (1, 8))[...] = 0
         backend = self.verifier.resolved_kernel()
 
         import torch
 
         dev = self.device
         start = time.perf_counter()
-        blocks = _to_device(packed.blocks, dev)
-        n_blocks = _to_device(packed.n_blocks, dev)
+        # One copy of the whole staged wave, then the pack kernel.
+        flat = packed.copy_in(dev)
+        staged = packed.views(flat, [k for k in packed.sections if k not in _HASH_SECTIONS])
+        blocks, n_blocks = packed.pack(flat)
         if prev_words is None:
-            prev_words = torch.zeros((1, 8), dtype=torch.int32, device=dev)
-        sources, touches, tvalid, digest_rows, claimed, touch_groups = (
-            _to_device(a, dev) for a in quorum_arrays
-        )
-        row_groups_t = _to_device(row_groups, dev)
-        verify_t = [_to_device(a, dev) for a in verify_inputs or ()]
-
+            prev_words = staged["prev_words"]
         digests = _hash_stage(blocks, n_blocks, packed.layout)
         ok = None
-        if verify_t:
+        if verify_names:
             from .ed25519 import ed25519_verify_kernel
 
-            ok = ed25519_verify_kernel(*verify_t, backend=backend)
+            ok = ed25519_verify_kernel(*(staged[k] for k in verify_names), backend=backend)
         posts, newbits = quorum_ops.quorum_accumulate(
-            self.masks, self.counts, sources, touches, tvalid,
-            (prev_words, digests, digest_rows, claimed, row_groups_t, touch_groups),
+            self.masks, self.counts, staged["sources"], staged["touches"], staged["valid"],
+            (prev_words, digests, staged["digest_rows"], staged["claimed"],
+             staged["row_groups"], staged["touch_groups"]),
         )
         event = None
         if dev.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev))
+            # The staged buffer is reused only once this event is done.
+            packed.lease.event = event
         m = _metrics()
         m.histogram("hash_device_dispatch_seconds").observe(
             time.perf_counter() - start

@@ -5,8 +5,10 @@ The crypto hot path of the framework: every ``ActionHashRequest`` of a
 cluster-wide wave becomes one row of a fixed-shape uint32 array and the whole
 wave is digested by one kernel launch.  The host side (padding, the
 vectorized pooled packer in both layouts, digest unpacking) is the JAX
-package's numpy code, copied unchanged so both packages pack bit-identical
-waves.  The device side is two hand-written CUDA kernels
+package's numpy code, copied unchanged: the mesh hasher packs with it, and
+it is the reference for the staged waves that ``TorchHasher`` hands the
+card instead (raw bytes in one pinned copy, the layout written by the pack
+kernel: ``ops/pack.py``).  The device side is two hand-written CUDA kernels
 (``csrc/sha256.cu``): the lanes-major kernel (``sha256_pallas_lanes.py``)
 for waves at or past the measured crossover (``crossover.py``) and the
 batch-major kernel (``sha256_pallas.py``) below it.
@@ -411,8 +413,8 @@ class TorchHasher:
     The surface of the JAX package's ``TpuHasher``: ``hash_batches`` groups
     the messages into (block-bucket, batch-bucket) shaped waves and returns
     digests in input order; ``pack`` / ``dispatch_packed`` / ``collect``
-    split one wave into host packing, an asynchronous launch, and the
-    blocking copy back.
+    split one wave into host staging, an asynchronous copy and launches,
+    and the blocking copy back.
 
     ``kernel``: "auto" (the measured crossover of ``crossover.py``: "lanes"
     on the card at or past the crossover wave, "scan" below it and always
@@ -453,16 +455,20 @@ class TorchHasher:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
         self._cpu = None
-        self._pool = _BufferPool()
         self._mesh_fn = None
         self._mesh_size = 0
-        if mesh is not None:
+        if mesh is None:
+            from .pack import StagingPool
+
+            self._pool = StagingPool(pinned=self.device.type == "cuda")
+        else:
             from ..parallel.mesh import sharded_sha256
 
             if mesh.device_type != self.device.type:
                 raise ValueError(
                     f"a {mesh.device_type} mesh for a {self.device.type} hasher"
                 )
+            self._pool = _BufferPool()
             self._mesh_fn = sharded_sha256(mesh)
             self._mesh_size = mesh.size
         if kernel == "auto" and self.device.type == "cuda":
@@ -483,9 +489,14 @@ class TorchHasher:
         messages: Sequence[bytes],
         block_bucket: Optional[int] = None,
         batch_bucket: Optional[int] = None,
-    ) -> PackedWave:
-        """Phase 1: vectorized packing into pooled buffers, shaped for the
-        kernel this wave resolves to (lanes-major for "lanes")."""
+    ):
+        """Phase 1, shaped for the kernel this wave resolves to
+        (lanes-major for "lanes").  Without a mesh the wave is staged, not
+        packed: its raw bytes and row index go into one pooled (on the card,
+        pinned) buffer, and the pack kernel writes the layout on the device
+        at dispatch (``ops/pack.py``; returns a ``StagedWave``).  A mesh
+        hasher packs on the host (``pack_messages``: the shards take host
+        blocks; returns a ``PackedWave``)."""
         start = time.perf_counter()
         batch_hint = max(len(messages), batch_bucket or 0)
         layout = (
@@ -494,23 +505,31 @@ class TorchHasher:
             and self._mesh_fn is None
             else "batch"
         )
-        packed = pack_messages(
-            messages,
-            block_bucket,
-            batch_bucket,
-            layout=layout,
-            batch_multiple=self._mesh_size or 1,
-            pool=self._pool,
-        )
+        if self._mesh_fn is None:
+            from .pack import stage_messages
+
+            packed = stage_messages(
+                messages, block_bucket, batch_bucket, layout=layout, pool=self._pool
+            )
+        else:
+            packed = pack_messages(
+                messages,
+                block_bucket,
+                batch_bucket,
+                layout=layout,
+                batch_multiple=self._mesh_size,
+                pool=self._pool,
+            )
         _metrics().histogram("hash_pack_seconds").observe(
             time.perf_counter() - start
         )
         return packed
 
-    def dispatch_packed(self, packed: PackedWave) -> HashDispatch:
-        """Phase 2: copy the wave to the device and launch ONE kernel on the
-        current stream (with a mesh, one a shard); returns without waiting
-        for the kernel."""
+    def dispatch_packed(self, packed) -> HashDispatch:
+        """Phase 2: one copy of the staged wave to the device, the pack
+        kernel and ONE hash kernel on the current stream (with a mesh, the
+        host-packed blocks to each shard and a kernel a shard); returns
+        without waiting for the kernels."""
         from .sha256_pallas import sha256_batch
         from .sha256_pallas_lanes import sha256_lanes
 
@@ -521,7 +540,7 @@ class TorchHasher:
             m.counter("mesh_hash_dispatches").inc()
             m.counter("mesh_hashed_messages").inc(packed.count)
         else:
-            blocks, n_blocks = wave_to_torch(packed.blocks, packed.n_blocks, self.device)
+            blocks, n_blocks = packed.pack(packed.copy_in(self.device))
             if packed.layout == "lanes":
                 words = sha256_lanes(blocks, n_blocks)
             else:
@@ -532,6 +551,9 @@ class TorchHasher:
 
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(words.device))
+            if self._mesh_fn is None:
+                # The staged buffer is reused only once this event is done.
+                packed.lease.event = event
         _metrics().histogram("hash_device_dispatch_seconds").observe(
             time.perf_counter() - start
         )
@@ -562,7 +584,7 @@ class TorchHasher:
         digests = digests_from_words(words[: handle.count])
         if handle.lease is not None:
             # The copy to the host above waited for the kernel, and the
-            # host-to-device copy of the packed buffer came before it on
+            # host-to-device copy of the staged buffer came before it on
             # the same stream: nothing reads the pooled buffer any more.
             self._pool.release(handle.lease)
             handle.lease = None

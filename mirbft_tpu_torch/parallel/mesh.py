@@ -28,7 +28,8 @@ it; a CPU mesh never stands in for a missing card.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -133,12 +134,33 @@ def shard_count_torch(mode: str, a, b, c=None):
     return (c & ~a).sum(dtype=torch.int32)
 
 
+# Each (device, stream)'s accumulator word for the count kernel's launches
+# of several blocks: zeroed once here, left zero by every launch.
+MIRLINT_SHARED_STATE = {"_accumulators": "_accumulators_lock"}
+_accumulators_lock = threading.Lock()
+_accumulators: Dict[Tuple[int, int], object] = {}
+
+
+def _accumulator(device, stream):
+    import torch
+
+    key = (device.index, stream.cuda_stream)
+    with _accumulators_lock:
+        acc = _accumulators.get(key)
+        if acc is None:
+            with torch.cuda.stream(stream):
+                acc = torch.zeros(1, dtype=torch.int64, device=device)
+            _accumulators[key] = acc
+    return acc
+
+
 def shard_count(mode: str, a, b, c=None):
     """Count one shard's mismatched digests or rejected real rows (see
     ``shard_count_torch``): the CUDA kernel (``csrc/mesh.cu``,
     ``mesh_count_kernel``) for CUDA tensors, the plain version for CPU
     tensors.  Returns a 0-d int32 on the shard's device and counts kernel
-    launches in ``shard_count.launches``."""
+    launches in ``shard_count.launches``.  One launch a count, nothing
+    else on the stream."""
     import torch
 
     _check_count(mode, a, b, c)
@@ -155,10 +177,12 @@ def shard_count(mode: str, a, b, c=None):
     else:
         pointers = (None, None, a.data_ptr(), b.data_ptr(), c.data_ptr())
     count = torch.empty((), dtype=torch.int32, device=a.device)
+    stream = torch.cuda.current_stream(a.device)
+    acc = _accumulator(a.device, stream)
     lib = _build.library("mesh")
     code = lib.mirbft_mesh_count(
-        _MODES[mode], *pointers, a.shape[0], count.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream,
+        _MODES[mode], *pointers, a.shape[0], count.data_ptr(), acc.data_ptr(),
+        stream.cuda_stream,
     )
     _build.check(lib, code, "mesh_count")
     shard_count.launches += 1

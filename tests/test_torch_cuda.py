@@ -471,3 +471,96 @@ def test_mesh_on_the_card():
     assert np.array_equal(ok.cpu().numpy(), plain)
     assert int(invalid) == sum(1 for e in expected if not e)
     graft_entry.dryrun_multichip(mesh.size)
+
+
+def test_mesh_count_back_to_back_launches_leave_the_ticket_zero():
+    """Counts of several blocks, back to back on one stream: each equals
+    the plain version and every launch leaves the stream's accumulator at
+    zero."""
+    from mirbft_tpu_torch.parallel import mesh as mesh_ops
+
+    rng = np.random.default_rng(3)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, size=(4097, 8), dtype=np.int64)
+                             .astype(np.int32)).cuda()
+    counts, wants = [], []
+    for flips in range(1, 11):
+        expected = words.clone()
+        expected[:flips * 300, 5] ^= 4
+        counts.append(mesh_ops.shard_count("digests", words, expected))
+        wants.append(min(flips * 300, 4097))
+    torch.cuda.synchronize()
+    assert [int(c) for c in counts] == wants
+    acc = mesh_ops._accumulator(words.device, torch.cuda.current_stream())
+    assert int(acc) == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_cases():
+    rng = np.random.default_rng(17)
+    boundary = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+                for n in (0, 1, 55, 56, 63, 64, 119, 120, 640)]
+    fused = [rng.integers(0, 256, size=640, dtype=np.uint8).tobytes() for _ in range(4096)]
+    c3 = [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+          for n in rng.integers(0, 64 * 64 - 8, size=64)]
+    return {"boundary": (boundary, {}), "fused": (fused, {}),
+            "c3": (c3, {"block_bucket": 64, "batch_bucket": 64})}
+
+
+@pytest.mark.parametrize("case", ["boundary", "fused", "c3"])
+@pytest.mark.parametrize("layout", ["batch", "lanes"])
+def test_pack_kernel_equals_plain_version_and_host_packer(layout, case):
+    from mirbft_tpu_torch.ops.pack import StagingPool, pack_wave, pack_wave_torch, stage_messages
+
+    messages, kw = _pack_cases()[case]
+    wave = stage_messages(messages, layout=layout, pool=StagingPool(pinned=True), **kw)
+    t = wave.views(wave.copy_in(torch.device("cuda")))
+    inputs = (t["raw"], t["offsets"], t["lengths"], wave.batch, wave.bucket, layout)
+    before = pack_wave.launches
+    blocks, n_blocks = pack_wave(*inputs)
+    assert pack_wave.launches == before + 1
+    plain_blocks, plain_n = pack_wave_torch(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(blocks, plain_blocks) and torch.equal(n_blocks, plain_n)
+    want = pack_messages(messages, layout=layout, **kw)
+    assert blocks.cpu().numpy().view(np.uint32).tobytes() == want.blocks.tobytes()
+    assert n_blocks.cpu().numpy().view(np.uint32).tobytes() == want.n_blocks.tobytes()
+
+
+def test_pipelined_waves_never_refill_a_staged_buffer_in_flight():
+    """Twenty fused waves of 4,096 x 640 bytes, two message sets in turn,
+    queued behind a spin kernel so every copy is still pending when its
+    lease goes back to the pool: no wave refills a buffer whose copy has
+    not run, and every wave's digests equal hashlib."""
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline
+
+    messages = _pack_cases()["fused"][0]
+    sets = [messages, messages[::-1]]
+    expect = [[hashlib.sha256(m).digest() for m in s] for s in sets]
+    pipe = FusedCryptoPipeline(n_slots=64, n_digest_slots=2)
+    pipe.collect(pipe.dispatch_wave(sets[0]))  # builds and probes outside the window
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s: holds the stream while the host stages
+    handles, buffers = [], set()
+    for i in range(20):
+        handle = pipe.dispatch_wave(sets[i % 2])
+        buffers.add(handle.lease.flat.data_ptr())
+        pipe._release_lease(handle)  # back to the pool while its copy waits
+        handles.append(handle)
+    assert len(buffers) == 20
+    for i, handle in enumerate(handles):
+        assert pipe.collect(handle).digests == expect[i % 2], i
+
+
+def test_hasher_waves_are_packed_on_the_card():
+    """TorchHasher on the card stages each wave and launches the pack
+    kernel once a wave, before its hash kernel."""
+    from mirbft_tpu_torch.ops.pack import StagedWave, pack_wave
+
+    hasher = TorchHasher(min_device_batch=1, kernel="scan")
+    messages = [b"staged-%d" % i * (i % 9) for i in range(300)]
+    packed = hasher.pack(messages)
+    assert isinstance(packed, StagedWave) and packed.lease.flat.is_pinned()
+    before = (pack_wave.launches, sha256_batch.launches)
+    handle = hasher.dispatch_packed(packed)
+    assert (pack_wave.launches, sha256_batch.launches) == (before[0] + 1, before[1] + 1)
+    assert packed.lease.event is handle.words.event
+    assert hasher.collect(handle) == [hashlib.sha256(m).digest() for m in messages]

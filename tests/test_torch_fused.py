@@ -284,8 +284,14 @@ def _shared_waves():
 def _run_shared(pipe, to_np):
     msgs1, msgs2, quorum1, quorum2, signed = _shared_waves()
     h1 = pipe.dispatch_wave(msgs1, quorum=quorum1)
-    h2 = pipe.dispatch_wave(msgs2, signed=signed, quorum=quorum2(h1.rows), chain=h1)
-    out = {"rows": (h1.rows, h2.rows)}
+    # Wave 2 through ``pack`` then ``dispatch_wave(packed=)``, as the hash
+    # plane drives it; the port's wave is staged, the JAX one host-packed.
+    packed2 = pipe.hasher.pack(msgs2)
+    h2 = pipe.dispatch_wave([], signed=signed, quorum=quorum2(h1.rows), chain=h1,
+                            packed=packed2)
+    out = {"rows": (h1.rows, h2.rows),
+           "staged": {name: section[2] for name, section in
+                      getattr(packed2, "sections", {}).items()}}
     r2 = pipe.collect(h2)
     part = pipe.collect_ready(h1, [19, 0, 7])
     r1 = pipe.collect(h1)
@@ -314,6 +320,24 @@ def test_port_pipeline_equals_jax_pipeline(shared_runs, wave, field):
     else:
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
+
+
+def test_port_fused_wave_crosses_in_one_staged_buffer(shared_runs):
+    """The port's chained signed wave was staged whole: its raw bytes and
+    row index, the verify inputs, the quorum stream, the row groups (no
+    dummy row: it is chained) in one buffer, one copy; the JAX wave was
+    packed on the host."""
+    ref, port = shared_runs
+    assert ref["staged"] == {}
+    staged = port["staged"]
+    msgs2, quorum2 = _shared_waves()[1], _shared_waves()[3](port["rows"][0])
+    assert list(staged) == ["raw", "offsets", "lengths", "ax", "ay", "r_bytes", "s_bits",
+                            "h_bits", "sources", "touches", "valid", "digest_rows", "claimed",
+                            "touch_groups", "row_groups"]
+    assert staged["raw"] == (sum(map(len, msgs2)),) and staged["lengths"] == (len(msgs2),)
+    # Three signed rows and three quorum waves, each padded to four.
+    assert staged["ax"] == (4, 32) and staged["touches"] == (4, 8, 2) and len(quorum2) == 3
+    assert staged["row_groups"] == (port["rows"][0] + port["rows"][1],)
 
 
 def test_port_quorum_state_equals_jax_pipeline(shared_runs):

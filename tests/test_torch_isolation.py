@@ -1,5 +1,5 @@
 """The port stands alone: ``mirbft_tpu_torch``, ``chip_smoke.py``,
-``ab_sha256.py`` and ``ab_ed25519.py`` import neither ``jax`` nor anything
+``ab_sha256.py``, ``ab_ed25519.py`` and ``ab_mesh_count.py`` import neither ``jax`` nor anything
 of the JAX package ``mirbft_tpu``.
 
 One subprocess makes both unimportable (``sys.modules[name] = None``),
@@ -214,6 +214,7 @@ def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "ab_sha256.py")
     yield os.path.join(ROOT, "ab_ed25519.py")
+    yield os.path.join(ROOT, "ab_mesh_count.py")
 
 
 def test_sources_never_name_jax_or_the_reference_package():

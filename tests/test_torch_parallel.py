@@ -342,9 +342,10 @@ HOST_WRAPPER = r"""
 
 extern "C" void host_count(int mode, const void* words, const void* expected, void* ok,
                            const void* valid, const void* real, long long rows,
-                           void* count) {{
+                           void* count, void* acc) {{
   const mesh::Args a{{mode, (const uint32_t*)words, (const uint32_t*)expected, (uint8_t*)ok,
-                     (const uint8_t*)valid, (const uint8_t*)real, rows, (uint32_t*)count}};
+                     (const uint8_t*)valid, (const uint8_t*)real, rows, (uint32_t*)count,
+                     (unsigned long long*)acc}};
   mesh::count_host(a);
 }}
 
@@ -376,7 +377,8 @@ def host_build(tmp_path_factory):
 
 def _host_count(lib, mode, arrays, rows):
     ptr = lambda a: ctypes.c_void_p(a.ctypes.data) if a is not None else None  # noqa: E731
-    count = np.full(1, 0xDEADBEEF, dtype=np.uint32)  # the launch zeroes it
+    count = np.full(1, 0xDEADBEEF, dtype=np.uint32)  # the launch stores it, unzeroed
+    acc = np.zeros(1, dtype=np.uint64)  # the stream's accumulator, zero between launches
     if mode == "digests":
         words, expected = arrays
         args = (ptr(words), ptr(expected), None, None, None)
@@ -384,7 +386,8 @@ def _host_count(lib, mode, arrays, rows):
         ok, valid, real = arrays
         args = (None, None, ptr(ok), ptr(valid), ptr(real))
     lib.host_count(ctypes.c_int(0 if mode == "digests" else 1), *args,
-                   ctypes.c_longlong(rows), ptr(count))
+                   ctypes.c_longlong(rows), ptr(count), ptr(acc))
+    assert int(acc[0]) == 0  # the last block leaves it zero for the next launch
     return int(count[0])
 
 
