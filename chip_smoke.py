@@ -17,7 +17,8 @@ Phases (any failure raises, and the script exits nonzero without a result):
             it; no card, or no port package beside this script -> exit 1.
 2. build    every CUDA source of the port, one nvcc each, started together;
             build seconds, the ptxas report (registers, spills, the local
-            stack; the quorum kernel must have no spill and no stack) and
+            stack; the quorum kernel must have no spill and no stack; the
+            "mxu" verify kernel's registers and stack are printed) and
             each kernel's SASS instruction mix (cuobjdump).  Then
             the SM clock (nvidia-smi, sampled while a spin kernel runs) and
             the integer pipes (csrc/latency_probe.cu): the dependent-issue
@@ -38,7 +39,16 @@ Phases (any failure raises, and the script exits nonzero without a result):
             verify_torch on the card and against verify_one on up to 64
             sampled rows a batch; S >= L unscreened (kernel and twin agree,
             and accept it, which is why the host screens it) and through
-            the verifier (rejected).  Then the quorum kernel (gate and
+            the verifier (rejected).  Then the "mxu" verify kernel
+            (csrc/ed25519_mxu.cu: every field multiply's nibble contraction
+            on the tensor cores) at the same batches from the same pool,
+            bit for bit against verify_torch with _mul_mxu on the card and
+            verify_one on up to 64 sampled rows, the vpu kernel's time on
+            the same rows beside its own, and the unscreened S >= L rows;
+            then the verify probe (both kernels on 256 zero rows, the race
+            of the first "auto" resolution) and what "auto" resolves to,
+            which every unpinned path's verify waves must then launch.
+            Then the quorum kernel (gate and
             accumulate) at the fused bench wave's stream (W = 4,096, D = 4,
             N = 8, K = 8), at N = 64 with K = 8 and 40, at N = 512 with
             K = 40 (20,480 touches: six chunks of the kernel's table) and
@@ -72,7 +82,11 @@ Phases (any failure raises, and the script exits nonzero without a result):
             among them), verdicts against verify_torch on the card and
             verify_one on 64 sampled rows; and a two-wave chain (the second
             gated on the first's digests), a partial collect and a full
-            one, against host_fused_reference, every lease released.
+            one, against host_fused_reference, every lease released.  Last
+            one wave with 256 signed rows on a pipeline with
+            verify_kernel="mxu": digests, verdicts, posts, newbits and
+            quorum state against host_fused_reference, one mxu launch and
+            no vpu launch.
 5. paths    the main path: the c3 Recording (64 replicas, 64 clients x 100
             requests, batch 100) with the device hash plane on kernel="auto",
             held to the port's host-path run of the same Spec (steps and
@@ -87,7 +101,11 @@ Phases (any failure raises, and the script exits nonzero without a result):
             all 800 requests committed on every node; and 4n_signed_corrupt
             (4 replicas, 4 x 20 signed requests, client 3 a corrupt signer),
             whose 60 honest requests commit on every node and client 3's on
-            none, with at least one corrupt row rejected by the kernel itself.
+            none, with at least one corrupt row rejected by the kernel itself;
+            and c2_signed_mxu, c2's Recording with its verify waves pinned
+            to the "mxu" kernel (MIRBFT_TPU_TORCH_VERIFY_KERNEL=mxu), one
+            device run held to c2_signed's host path, its mxu launches
+            equal to its verify waves and no vpu verify launch.
             Then the same three through the fused pipeline (fused=True):
             c3_fused, c2_signed_fused (with hash_floor 1, so that c2's 32
             unique digests reach the card at all) and
@@ -112,7 +130,9 @@ Phases (any failure raises, and the script exits nonzero without a result):
             torch.profiler dropped fast runs' first device records; a trace
             that lost a launch is taken again, up to three times);
             c2_16n_signed_fast_streaming (verdicts from several lookahead
-            waves during the run), one device run; and
+            waves during the run), one device run; c2_16n_signed_fast_mxu
+            (the 1,024-row verdict wave pinned to the "mxu" kernel), one
+            device run; and
             4n_signed_corrupt_fast (waves of 16, client 3 corrupt), one
             device run whose corrupt row the kernel rejects.  Each run is
             held to the host-path fingerprint of its Recording path (c3_auto,
@@ -161,7 +181,9 @@ Phases (any failure raises, and the script exits nonzero without a result):
             0, 1 and 2 corrupted digests, sharded_ed25519_verify at 1,024
             signed rows (the corrupt signer's 64 among them) and 64 padding
             rows (real=False) bit for bit against verify_torch on the card
-            with the count of corrupt real rows, the count kernel
+            with the count of corrupt real rows, and the same with
+            kernel="mxu" (one mxu launch a card) against verify_torch with
+            _mul_mxu, the count kernel
             (csrc/mesh.cu) against its plain version at 1, 7, 33 and 4,097
             rows with all, none and random rows real or differing, one
             launch and nothing else a count (eight counts under
@@ -189,6 +211,14 @@ The bound counts the work, not how the kernel spreads it.  Beside it,
 cycles_per_mul is the launch's time at the sampled SM clock over the 1,295
 field multiplies one lane of csrc/ed25519.cu runs in series (four lanes
 share a signature's multiplies: one of each formula stage).
+
+"mxu" Ed25519 bound: csrc/ed25519_mxu.cu runs the reference's program, 4,870
+field multiplies a row (the uncached addition of 9 multiplies, the
+inversion's 506); each multiply's 4,096 nibble products and their two 4-bit
+halves (3 integer operations a product) at the INT32 rate, its MMAs' int8
+multiply-adds (160 K tiles x 4 m16n8k32 MMAs for 16 rows: 163,840 a row) at
+the dense int8 rate (1,979 TOPS), or the row's bytes at the HBM rate: the
+largest (the integer work).
 
 Quorum bound: the bytes one launch must move (each touch's slot, digest,
 valid, gate row, group, post and newbit; a gated touch's 8 claimed words,
@@ -292,6 +322,20 @@ VERIFY_BYTES_PER_ROW = 3 * 32 * 4 + 2 * 256 * 4 + 1
 # signature: 5 to set up the table, 4 a ladder step (one of each formula
 # stage), the inversion's 265 and one for x or y.
 VERIFY_SERIAL_MULS = 5 + 256 * 4 + 265 + 1
+# The "mxu" kernel (csrc/ed25519_mxu.cu) runs the reference's program: one
+# verification is 4,870 field multiplies (1 + 9 to set up the table, 256 x
+# (8 + 9) in the ladder, 254 + 252 in the inversion, 2 for x and y); each,
+# a row, 4,096 nibble products and their two 4-bit halves (3 integer
+# operations each) and the int8 multiply-adds of its MMAs (160 K tiles x 4
+# MMAs x 4,096 for 16 rows).  Hopper's dense int8 tensor rate at 700 W.
+MXU_MULS_PER_VERIFY = 1 + 9 + 256 * 17 + 254 + 252 + 2
+MXU_INT_OPS_PER_MUL = 4096 * 3
+MXU_MACS_PER_MUL = 160 * 4 * 4096 // 16
+INT8_OPS_PER_S = 1.979e15
+# Paths whose verify waves are pinned to a backend (through the port's
+# environment override, MIRBFT_TPU_TORCH_VERIFY_KERNEL); every other path's
+# verifiers resolve "auto" by the process's one probe (take_verify_probe).
+VERIFY_PINS = {"c2_signed_mxu": "mxu", "c2_16n_signed_fast_mxu": "mxu"}
 # The quorum kernel's streams (W, D, N, K): the fused bench wave's (4,096
 # slots, 4 digest slots, eight one-touch waves padded to K = 8) and longer
 # ones, K = 40 past a warp; 20,480 touches, which overflow the kernel's
@@ -316,6 +360,9 @@ C2_FAST_ORDER = "HDHP"
 FUSED_BATCH, FUSED_MSG_LEN, FUSED_DEPTH = 4096, 640, 20
 FUSED_SLOTS, FUSED_DIGEST_SLOTS = 4096, 4
 FUSED_SIGNED = 1024
+# Signed rows of phase 4's "mxu" fused wave: host_fused_reference checks
+# each with verify_one (pure Python, ~9 ms a row).
+FUSED_MXU_SIGNED = 256
 
 
 def log(*args):
@@ -826,6 +873,7 @@ def check_ed25519(clock):
         s = int.from_bytes(sigs[i][32:], "little")
         inputs[3][n] = np.unpackbits(np.frombuffer(s.to_bytes(32, "little"), dtype="uint8"),
                                      bitorder="little")
+    s_rows = inputs
     inputs = [torch.from_numpy(a).to(DEVICE) for a in inputs]
     got = kernel(*inputs)
     want = e.verify_torch(*inputs)
@@ -837,6 +885,77 @@ def check_ed25519(clock):
         raise AssertionError("ed25519: an S >= L row got through the verifier")
     log(f"ed25519 S >= L: {len(rows)} rows unscreened, kernel == twin, all accepted "
         f"(S + L gives the same [S]B); through the verifier all rejected == verify_one")
+    pool = dict(pubs=pubs, msgs=msgs, sigs=sigs, kinds=kinds, kind_of=kind_of, pad=pad,
+                arrays=arrays, expected=expected, s_rows=s_rows)
+    return worst, pool
+
+
+def mxu_bound(rows):
+    """(bound_ms, bound_by) of one "mxu" verify launch of ``rows`` rows:
+    the larger of its integer work (the nibble products and their halves)
+    at the INT32 rate, its MMAs' int8 multiply-adds at the dense int8 rate,
+    and its bytes at the HBM rate."""
+    int_s = rows * MXU_MULS_PER_VERIFY * MXU_INT_OPS_PER_MUL / INT32_OPS_PER_S
+    mma_s = rows * MXU_MULS_PER_VERIFY * MXU_MACS_PER_MUL * 2 / INT8_OPS_PER_S
+    bytes_s = rows * VERIFY_BYTES_PER_ROW / HBM_BYTES_PER_S
+    return max(int_s, mma_s, bytes_s) * 1e3, (
+        "bytes" if bytes_s > max(int_s, mma_s) else "operations")
+
+
+def check_ed25519_mxu(clock, pool):
+    """Phase 3, Ed25519 "mxu": the tensor-core verify kernel at every listed
+    batch (phase 3's pool: RFC 8032 rows first, then padding rows, then
+    random rows) against verify_torch with _mul_mxu on the card, bit for
+    bit, and verify_one on sampled rows; the vpu kernel's time on the same
+    inputs beside its own; and the unscreened S >= L rows."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+
+    rng = np.random.default_rng(SEED + 11)
+    arrays, expected, kind_of = pool["arrays"], pool["expected"], pool["kind_of"]
+    valid, n_pool, pad = arrays[5], len(pool["pubs"]), pool["pad"]
+    worst = 0
+
+    def kernel(*tensors):
+        return e.ed25519_verify_kernel(*tensors, backend="mxu")
+
+    for batch in VERIFY_BATCHES:
+        pick = rng.integers(0, len(kind_of), size=batch)
+        lead = np.concatenate([np.arange(3), n_pool + np.arange(pad)])[:batch]
+        pick[: len(lead)] = lead
+        inputs = [torch.from_numpy(np.ascontiguousarray(a[pick])).to(DEVICE) for a in arrays[:5]]
+        got = kernel(*inputs)
+        want, plain_s = plain_once(lambda: e.verify_torch(*inputs, mul=e._mul_mxu))
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ed25519 mxu batch={batch}: kernel != verify_torch(_mul_mxu)")
+        verdicts = got.cpu().numpy() & valid[pick]
+        if not verdicts[: min(batch, 3)].all():
+            raise AssertionError(f"ed25519 mxu batch={batch}: an RFC 8032 vector failed")
+        sample = rng.choice(batch, size=min(VERIFY_SAMPLE, batch), replace=False)
+        for i in sample:
+            if verdicts[i] != expected[pick[i]]:
+                raise AssertionError(f"ed25519 mxu batch={batch}: row {i} != verify_one")
+        ms = time_cuda(lambda: kernel(*inputs), repeats=3) * 1e3
+        vpu_ms = time_cuda(lambda: e.ed25519_verify_kernel(*inputs), repeats=5) * 1e3
+        bound_ms, by = mxu_bound(batch)
+        log(f"kernel ed25519_verify_mxu batch={batch} verified={int(verdicts.sum())} "
+            f"padding={int((pick >= n_pool).sum())} ms={ms:.6f} plain_ms={plain_s * 1e3:.3f} "
+            f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f} "
+            f"vpu_ms={vpu_ms:.6f} mxu/vpu={ms / vpu_ms:.2f} "
+            f"ms_per_multiply={ms / MXU_MULS_PER_VERIFY:.6f} max_abs_err={err} "
+            f"verify_one_rows={len(sample)} ok")
+    # S >= L unscreened, as for the vpu kernel: accepted by kernel and twin.
+    inputs = [torch.from_numpy(a).to(DEVICE) for a in pool["s_rows"]]
+    got = kernel(*inputs)
+    want = e.verify_torch(*inputs, mul=e._mul_mxu)
+    if not torch.equal(got, want) or not bool(got.all()):
+        raise AssertionError("ed25519 mxu: unscreened S >= L rows: kernel != twin, or not accepted")
+    log(f"ed25519 mxu S >= L: {len(inputs[0])} rows unscreened, kernel == twin, all accepted")
     return worst
 
 
@@ -1279,6 +1398,10 @@ def check_fused(clock):
         raise AssertionError("fused wave: posts or newbits != the plain version")
     same_state("wave")
     layout = handle.layout
+    plain_res, plain_ms = fused_plain(msg_sets[0], quorum)
+    if plain_res.digests != expect[0] or not ((plain_res.posts == posts).all()
+                                              and (plain_res.newbits == newbits).all()):
+        raise AssertionError("fused wave's plain version: digests, posts or newbits differ")
     # The first pass of FUSED_DEPTH waves in flight allocates their pinned
     # staging buffers (torch's caching host allocator keeps them after);
     # the second pass is the steady state that fused_wave_4096_ms reports.
@@ -1360,6 +1483,7 @@ def check_fused(clock):
     log(f"fused_wave messages={FUSED_BATCH} msg_len={FUSED_MSG_LEN} layout={layout} "
         f"rows={handle.rows} quorum_waves={len(quorum)} depth={FUSED_DEPTH} "
         f"fused_wave_4096_ms={piped * 1e3:.6f} bound_ms={bound_ms:.6f} "
+        f"plain_ms={plain_ms:.3f} (one wave, every kernel's plain version on the card) "
         f"signed_rows={FUSED_SIGNED} fused_wave_4096_signed_ms={piped_signed * 1e3:.6f} "
         f"signed_bound_ms={signed_bound_ms:.6f} (sums of the stages' bounds) "
         f"first_pass_ms={first_pass * 1e3:.6f} signed {first_pass_signed * 1e3:.6f} "
@@ -1374,9 +1498,97 @@ def check_fused(clock):
         f"wave 1 rows, collect_ready + collect == host_fused_reference, leases released | "
         f"{nvidia_smi_line()}")
     return {"fused_wave_4096_ms": piped * 1e3, "fused_wave_4096_signed_ms": piped_signed * 1e3,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "signed_bound_ms": signed_bound_ms,
             "split": split, "split_signed": split_signed, "tiny_wave": tiny,
             "staged_copy": (copy_bytes, copy_ms, signed_copy_bytes, signed_copy_ms)}
+
+
+def fused_plain(messages, quorum):
+    """(result, ms) of one fused wave through a pipeline of its own with
+    every kernel swapped for its plain version on the card (the pack, hash
+    and quorum twins, ``StagedWave.pack`` on the buffer's views): the fused
+    wave's plain version, dispatch to collect, timed once."""
+    from mirbft_tpu_torch.ops import pack, sha256_pallas, sha256_pallas_lanes
+    from mirbft_tpu_torch.ops import quorum as quorum_ops
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline
+    from mirbft_tpu_torch.ops.sha256 import sha256_batch_torch
+
+    def plain_pack(staged, flat):
+        t = staged.views(flat, ("raw", "offsets", "lengths"))
+        return pack.pack_wave_torch(t["raw"], t["offsets"], t["lengths"], staged.batch,
+                                    staged.bucket, staged.layout)
+
+    def plain_quorum(masks, counts, sources, touches, valid, gate):
+        new_masks, new_counts, posts, newbits = quorum_ops.quorum_accumulate_torch(
+            masks, counts, sources, touches, valid, gate)
+        masks.copy_(new_masks)
+        counts.copy_(new_counts)
+        return posts, newbits
+
+    swaps = [(sha256_pallas_lanes, "sha256_lanes", sha256_pallas_lanes.sha256_lanes_torch),
+             (sha256_pallas, "sha256_batch", sha256_batch_torch),
+             (quorum_ops, "quorum_accumulate", plain_quorum),
+             (pack.StagedWave, "pack", plain_pack)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in swaps]
+    pipe = FusedCryptoPipeline(n_slots=FUSED_SLOTS, n_digest_slots=FUSED_DIGEST_SLOTS,
+                               device=DEVICE)
+    try:
+        for owner, attr, fn in swaps:
+            setattr(owner, attr, fn)
+        res, seconds = plain_once(
+            lambda: pipe.collect(pipe.dispatch_wave(messages, quorum=quorum)))
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    return res, seconds * 1e3
+
+
+def check_fused_mxu():
+    """Phase 4, "mxu": one fused wave at the bench's width (4,096 messages of
+    640 bytes, eight one-touch quorum waves) with FUSED_MXU_SIGNED signed
+    rows riding it (a corrupt signer's among them), on a pipeline with
+    verify_kernel="mxu": digests, verdicts, posts, newbits and quorum state
+    against host_fused_reference, its verdicts from the mxu kernel alone."""
+    import numpy as np
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.fused import FusedCryptoPipeline, host_fused_reference
+
+    rng = np.random.default_rng(SEED + 13)
+    messages = [rng.integers(0, 256, size=FUSED_MSG_LEN, dtype=np.uint8).tobytes()
+                for _ in range(FUSED_BATCH)]
+    pipe = FusedCryptoPipeline(n_slots=FUSED_SLOTS, n_digest_slots=FUSED_DIGEST_SLOTS,
+                               verify_kernel="mxu", device=DEVICE)
+    quorum = [(s, [(s % FUSED_BATCH, 0, None, None)]) for s in range(8)]
+    pubs, msgs, sigs, corrupt = signed_rows(FUSED_MXU_SIGNED)
+    before = (e.ed25519_verify_kernel.launches, e.ed25519_verify_mxu_kernel.launches)
+    start = time.perf_counter()
+    handle = pipe.dispatch_wave(messages, signed=(pubs, msgs, sigs), quorum=quorum)
+    res = pipe.collect(handle)
+    wave_ms = (time.perf_counter() - start) * 1e3
+    launched = (e.ed25519_verify_kernel.launches - before[0],
+                e.ed25519_verify_mxu_kernel.launches - before[1])
+    zeros = (np.zeros((FUSED_SLOTS, FUSED_DIGEST_SLOTS, 8), np.uint32),
+             np.zeros((FUSED_SLOTS, FUSED_DIGEST_SLOTS), np.int32))
+    digests, verdicts, masks, counts, posts, newbits = host_fused_reference(
+        messages, (pubs, msgs, sigs), quorum, *zeros)
+    got_masks, got_counts = pipe.quorum_state()
+    checks = {
+        "resolved mxu": pipe.resolved_verify_kernel() == "mxu",
+        "one mxu launch, no vpu": launched == (0, 1),
+        "digests": res.digests == digests,
+        "verdicts": bool((res.verdicts == verdicts).all()),
+        "corrupt rejected": not res.verdicts[corrupt].any() and bool(verdicts.sum()),
+        "posts, newbits": bool((res.posts == posts).all() and (res.newbits == newbits).all()),
+        "quorum state": bool((got_masks == masks).all() and (got_counts == counts).all()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"mxu fused wave != host_fused_reference: {checks}")
+    log(f"fused_wave mxu: {FUSED_BATCH} messages, {FUSED_MXU_SIGNED} signed rows "
+        f"({len(corrupt)} of the corrupt signer's), {len(quorum)} quorum waves, "
+        f"verify_kernel=mxu: {checks} (== host_fused_reference); launches vpu, mxu "
+        f"{launched}; one wave dispatch to collect {wave_ms:.3f} ms (not pipelined)")
 
 
 class LoggedWave:
@@ -1639,6 +1851,7 @@ def counted_kernels():
 
     kernels = {name: entry[0] for name, entry in kernel_table().items()}
     kernels["ed25519_verify"] = ed25519.ed25519_verify_kernel
+    kernels["ed25519_verify_mxu"] = ed25519.ed25519_verify_mxu_kernel
     kernels["quorum_accumulate"] = quorum.quorum_accumulate
     kernels["mesh_count"] = shard_count
     kernels["pack_wave"] = pack.pack_wave
@@ -1646,12 +1859,63 @@ def counted_kernels():
 
 
 def reset_launches():
+    """Zero every count, after the process's verify probe (cached), whose
+    launches would otherwise land in the window: a card's verifier takes
+    it when it is built."""
+    take_verify_probe()
     for kernel in counted_kernels().values():
         kernel.launches = 0
 
 
 def read_launches():
     return {name: kernel.launches for name, kernel in counted_kernels().items()}
+
+
+def verify_counter():
+    """The counted kernel a verify wave of "auto" launches here: the
+    port's own resolution (the environment's pin, else the probe's
+    winner)."""
+    from mirbft_tpu_torch.ops.crossover import resolve_verify_backend
+
+    backend = resolve_verify_backend("auto", backend="cuda")
+    return "ed25519_verify_mxu" if backend == "mxu" else "ed25519_verify"
+
+
+class PinnedVerify:
+    """Pins the verify backend of path ``name`` (VERIFY_PINS) by the port's
+    environment override for the duration; a path without a pin runs
+    "auto"."""
+
+    def __init__(self, name):
+        self.pin = VERIFY_PINS.get(name)
+
+    def __enter__(self):
+        from mirbft_tpu_torch.ops.crossover import ENV_VERIFY_KERNEL
+
+        self.before = os.environ.get(ENV_VERIFY_KERNEL)
+        if self.pin is not None:
+            os.environ[ENV_VERIFY_KERNEL] = self.pin
+        return self
+
+    def __exit__(self, *exc):
+        from mirbft_tpu_torch.ops.crossover import ENV_VERIFY_KERNEL
+
+        if self.before is None:
+            os.environ.pop(ENV_VERIFY_KERNEL, None)
+        else:
+            os.environ[ENV_VERIFY_KERNEL] = self.before
+
+
+def take_verify_probe():
+    """The one-time verify probe of this process (both kernels on 256 zero
+    rows, cached): (vpu_s, mxu_s) and the wall seconds this call took,
+    which the first call of a process spends once (the cost a card's
+    first verifier pays at construction)."""
+    from mirbft_tpu_torch.ops.crossover import measure_verify_probe
+
+    start = time.perf_counter()
+    probe = measure_verify_probe("cuda")
+    return probe, time.perf_counter() - start
 
 
 def run_spec(spec, profile=None):
@@ -1732,6 +1996,8 @@ def drive_paths():
         # unfused twin
         ("c3_auto", C3, dict(C3_PLANE, kernel="auto"), None, C3_ORDER, None, None),
         ("c2_signed", C2, dict(C2_PLANE, kernel="auto"), None, C2_ORDER, None, None),
+        # c2 with its verify waves pinned to the "mxu" kernel (VERIFY_PINS).
+        ("c2_signed_mxu", C2, dict(C2_PLANE, kernel="auto"), None, "D", None, "c2_signed"),
         ("4n_lanes", SMALL, dict(SMALL_PLANE, kernel="lanes"), "sha256_lanes", "HD", None,
          None),
         ("4n_scan", SMALL, dict(SMALL_PLANE, kernel="scan"), "sha256_batch", "HD", None, None),
@@ -1778,7 +2044,8 @@ def drive_paths():
                 profile = os.path.join(out_dir, f"trace_{name}.json")
             reset_launches()
             with WaveLog() as run_waves, VerifyLog() as run_verify, FusedLog() as run_fused, \
-                    SignClock() as signing:
+                    SignClock() as signing, PinnedVerify(name) as pinned_verify:
+                verify_kernel = verify_counter()
                 recording, steps, finals, wall, snap = run_spec(
                     Spec(**shape, tweak_recorder=tweak,
                          crypto=CryptoConfig(**crypto, torch_device=DEVICE)),
@@ -1794,8 +2061,11 @@ def drive_paths():
             dispatches = int(snap.get("device_hash_dispatches", 0))
             verifies = int(snap.get("device_verify_dispatches", 0))
             fused_dispatches = int(snap.get("fused_wave_dispatches", 0))
-            if signed and (verifies <= 0 or launches["ed25519_verify"] <= 0):
+            if signed and (verifies <= 0 or launches[verify_kernel] <= 0):
                 raise AssertionError(f"{name}: no verify wave launched the kernel")
+            if pinned_verify.pin is not None and launches[verify_kernel] != verifies:
+                raise AssertionError(f"{name}: {verifies} verify waves, "
+                                     f"{launches[verify_kernel]} {verify_kernel} launches")
             if not signed and dispatches <= 0:
                 raise AssertionError(f"{name}: no device hash wave launched")
             if fused and (fused_dispatches <= 0
@@ -1811,7 +2081,7 @@ def drive_paths():
             resolved = wave_kernels(all_waves)
             hashes = {k for k in resolved if k.startswith("sha256_")}
             if run_verify.waves or any(run_fused.signed):
-                resolved.add("ed25519_verify")
+                resolved.add(verify_kernel)
             if run_fused.signed:
                 resolved.add("quorum_accumulate")
             if pinned is not None and hashes != {pinned}:
@@ -1903,7 +2173,7 @@ def drive_paths():
             host_s, twin_s, dev_s = (sum(w) / len(w) for w in (base["H"], base["D"], walls["D"]))
             log(f"path {name} walls in order {order.replace('P', '')}: device {walls['D']}; "
                 f"{twin} host {base['H']} device {base['D']}; mean device/host "
-                f"{dev_s / host_s:.4f}; mean fused/unfused device {dev_s / twin_s:.4f}")
+                f"{dev_s / host_s:.4f}; mean {name}/{twin} device {dev_s / twin_s:.4f}")
         elif len(walls["H"]) > 1 or len(walls["D"]) > 1:
             host_s, dev_s = (sum(w) / len(w) for w in (walls["H"], walls["D"]))
             log(f"path {name} walls in order {order.replace('P', '')}: host {walls['H']} "
@@ -1958,6 +2228,8 @@ def fast_paths():
                                "c2_signed"),
         "c2_16n_signed_fast_streaming": (
             C2, dict(auth_wave=auth_wave, streaming_auth=True), "D", None, "c2_signed"),
+        # c2's one 1,024-row verdict wave on the "mxu" kernel (VERIFY_PINS).
+        "c2_16n_signed_fast_mxu": (C2, dict(auth_wave=auth_wave), "D", None, "c2_signed"),
         "4n_signed_corrupt_fast": (
             SMALL_SIGNED, dict(auth_wave=SMALL_SIGNED_PLANE["auth_wave"]), "D",
             corrupt_signer, "4n_signed_corrupt"),
@@ -1974,7 +2246,9 @@ def fast_device_run(name, profile=None):
     shape, keywords, _, tweak, _ = fast_paths()[name]
     reset_launches()
     probes = measure_hash_probe.cache_info().misses
-    with WaveLog() as waves, VerifyLog() as verify, SignClock() as signing:
+    with WaveLog() as waves, VerifyLog() as verify, SignClock() as signing, \
+            PinnedVerify(name):
+        verify_kernel = verify_counter()
         recording, steps, finals, wall, snap = run_fast(
             Spec(**shape, tweak_recorder=tweak), profile=profile, device=True, **keywords)
     screened = rejected = 0
@@ -1987,7 +2261,8 @@ def fast_device_run(name, profile=None):
         "wall": wall,
         "launches": read_launches(),
         "resolved": sorted(wave_kernels(waves.waves)
-                           | ({"ed25519_verify"} if verify.waves else set())),
+                           | ({verify_kernel} if verify.waves else set())),
+        "verify_kernel": verify_kernel,
         "staged_waves": staged_waves(waves.waves),
         "probes": measure_hash_probe.cache_info().misses - probes,
         "committed": [{str(c): n for c, n in node.committed_reqs.items()}
@@ -2104,11 +2379,12 @@ def drive_fast_paths(host_fps):
                 # dispatch launches the kernel once.
                 rows = shape["client_count"] * shape["reqs_per_client"]
                 want = -(-rows // keywords["auth_wave"])
+                counter = run["verify_kernel"]
                 if (verifies <= 1 if keywords.get("streaming_auth") else verifies != want) \
-                        or launches["ed25519_verify"] != verifies:
+                        or launches[counter] != verifies:
                     raise AssertionError(
                         f"{name}: {verifies} verify dispatches ({want} waves of the pre-run "
-                        f"pass) and {launches['ed25519_verify']} kernel launches")
+                        f"pass) and {launches[counter]} {counter} launches")
                 if corrupt is not None and run["rejected"] < 1:
                     raise AssertionError(f"{name}: no corrupt row reached the kernel")
             for kernel, count in launches.items():
@@ -2527,7 +2803,7 @@ def drive_mux_recordings(host_fps):
         all_waves[key] = (all_waves.get(key, (0, None))[0] + count, inputs)
     resolved = wave_kernels(all_waves)
     if run_verify.waves or any(run_fused.signed):
-        resolved.add("ed25519_verify")
+        resolved.add(verify_counter())
     if run_fused.signed:
         resolved.add("quorum_accumulate")
     for kernel, count in launches.items():
@@ -2912,13 +3188,14 @@ def drive_embedded_node(tmp):
                              f"the forgery on each of {NODE_COUNT} nodes")
     if snap.get("hash_dispatch_seconds_count", 0) <= 0:
         raise AssertionError("embedded nodes: no hash dispatch was timed")
-    resolved = wave_kernels(run_waves.waves) | {"ed25519_verify"}
+    counter = verify_counter()
+    resolved = wave_kernels(run_waves.waves) | {counter}
     for kernel, count in launches.items():
         if (count > 0) != (kernel in resolved):
             raise AssertionError(f"embedded nodes: {kernel} launched {count} times")
-    if launches["ed25519_verify"] != len(run_verify.waves):
+    if launches[counter] != len(run_verify.waves):
         raise AssertionError(f"embedded nodes: {len(run_verify.waves)} verify waves, "
-                             f"{launches['ed25519_verify']} kernel launches")
+                             f"{launches[counter]} kernel launches")
     unique, wall = len(want), run["wall"]
     applied_all = sum(set(l.commits) == want for l in logs)
     log(f"deploy embedded nodes: {NODE_COUNT} threaded Nodes, {NODE_CLIENTS} clients x "
@@ -3296,6 +3573,21 @@ def check_mesh(worst):
     log(f"mesh sharded_ed25519_verify: {batch} rows ({MESH_SIGNED} real, {len(corrupt)} of the "
         f"corrupt signer's, {batch - MESH_SIGNED} padding) == verify_torch on the card; "
         f"count {int(invalid)}")
+    # The same rows on the "mxu" kernel: one launch a card.
+    before = e.ed25519_verify_mxu_kernel.launches
+    ok, invalid = parallel.sharded_ed25519_verify(mesh, kernel="mxu")(*packed, real)
+    launched = e.ed25519_verify_mxu_kernel.launches - before
+    plain = e.verify_torch(*(torch.from_numpy(a).to(DEVICE) for a in packed[:5]),
+                           mul=e._mul_mxu)
+    plain &= torch.from_numpy(packed[5]).to(DEVICE)
+    torch_sync()
+    if not torch.equal(ok, plain) or launched != n:
+        raise AssertionError(f"mesh mxu: sharded verdicts != verify_torch(_mul_mxu) on the "
+                             f"card, or {launched} mxu launches on {n} cards")
+    if int(invalid) != len(corrupt) or ok.cpu().numpy()[corrupt].any():
+        raise AssertionError(f"mesh mxu: count {int(invalid)} of {len(corrupt)} corrupt rows")
+    log(f"mesh sharded_ed25519_verify kernel=mxu: the same {batch} rows == verify_torch with "
+        f"_mul_mxu on the card; count {int(invalid)}; ed25519_verify_mxu launches {launched}")
 
     for mode in ("digests", "verdicts"):
         for rows in MESH_COUNT_ROWS:
@@ -3368,13 +3660,14 @@ def drive_mesh(host_fps, worst):
             "mesh_hash_dispatches", "mesh_hashed_messages", "mesh_verify_dispatches",
             "mesh_verified_signatures")}
         resolved = wave_kernels(run_waves.waves)
+        counter = verify_counter()
         if run_verify.waves:
-            resolved |= {"ed25519_verify", "mesh_count"}
+            resolved |= {counter, "mesh_count"}
         for kernel, count in launches.items():
             if (count > 0) != (kernel in resolved):
                 raise AssertionError(f"{name}: {kernel} launched {count} times")
         verifies = mesh["mesh_verify_dispatches"]
-        if verifies <= 0 or not (launches["ed25519_verify"] == launches["mesh_count"]
+        if verifies <= 0 or not (launches[counter] == launches["mesh_count"]
                                  == n * verifies):
             raise AssertionError(f"{name}: {verifies} mesh verify waves, launches {launches}")
         if fast is None and (mesh["mesh_hash_dispatches"] <= 0
@@ -3404,7 +3697,9 @@ def fused_alone():
     log(f"fused alone: {smi}; build {_build.build_all()}")
     log(_build.ptxas_report("pack").strip())
     check_pack()
+    take_verify_probe()
     check_fused((sm_clock_hz(),))
+    check_fused_mxu()
     log(smi)
     return 0
 
@@ -3427,7 +3722,8 @@ def mesh_alone():
     if _native.load_fast() is None:
         raise AssertionError("g++ could not build the fast engine (_native/fastengine.cpp)")
     _, steps, finals, wall, _ = run_spec(Spec(**C2))
-    log(f"mesh alone: c2_signed host path steps={steps} wall_s={wall:.3f}")
+    log(f"mesh alone: c2_signed host path steps={steps} wall_s={wall:.3f}; verify probe "
+        f"{take_verify_probe()[0]}, auto resolves to {verify_counter()}")
     worst = {}
     start = time.perf_counter()
     results, timings = drive_mesh({"c2_signed": (steps, finals)}, worst)
@@ -3560,6 +3856,7 @@ def report(paths, worst, clock, mesh_timings):
         })
     kernels.append(report_pack(paths, worst))
     kernels.append(report_ed25519(paths, worst, clock))
+    kernels.append(report_ed25519_mxu(paths, worst))
     kernels.append(report_quorum(paths, worst))
     kernels.append(report_mesh(paths, worst, mesh_timings))
     return kernels
@@ -3621,7 +3918,9 @@ def report_ed25519(paths, worst, clock):
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "issue_bound_ms": 0.0, "ops": 0,
            "bytes": 0}
     n = 0
-    for path, (_, _, inputs, _) in paths.items():
+    for path, (launched, _, inputs, _) in paths.items():
+        if not launched[name]:
+            continue  # its verify waves ran the "mxu" kernel
         for rows, (count, packed) in (inputs or {}).items():
             tensors = [torch.from_numpy(a).to(DEVICE) for a in packed[:5]]
             want, plain_s = plain_once(lambda: e.verify_torch(*tensors))
@@ -3660,6 +3959,62 @@ def report_ed25519(paths, worst, clock):
         "bound_by": "operations" if tot["ops"] >= tot["bytes"] else "bytes",
         "library_ms": None,
         "imad_wide_issue_bound_ms": tot["issue_bound_ms"] / n,
+    }
+
+
+def report_ed25519_mxu(paths, worst):
+    """The "mxu" verify kernel's entry: timed on each verify wave shape of
+    the paths that launched it, held to verify_torch with _mul_mxu there,
+    averaged over the launches."""
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519 as e
+    from mirbft_tpu_torch.ops.crossover import time_cuda
+
+    name = "ed25519_verify_mxu"
+    launches = sum(entry[0][name] for entry in paths.values())
+    if launches <= 0:
+        raise AssertionError(f"{name} was launched on no path")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "vpu_ms": 0.0}
+    n = 0
+    for path, (launched, _, inputs, _) in paths.items():
+        if not launched[name]:
+            continue
+        for rows, (count, packed) in (inputs or {}).items():
+            tensors = [torch.from_numpy(a).to(DEVICE) for a in packed[:5]]
+            want, plain_s = plain_once(lambda: e.verify_torch(*tensors, mul=e._mul_mxu))
+            got = e.ed25519_verify_kernel(*tensors, backend="mxu")
+            torch_sync()
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            worst[name] = max(worst[name], err)
+            if err:
+                raise AssertionError(f"{name}: kernel != plain on a path wave of {rows} rows")
+            ms = time_cuda(lambda: e.ed25519_verify_kernel(*tensors, backend="mxu"),
+                           repeats=3) * 1e3
+            vpu_ms = time_cuda(lambda: e.ed25519_verify_kernel(*tensors), repeats=5) * 1e3
+            bound_ms, _ = mxu_bound(rows)
+            log(f"path-wave {path} {name} rows={rows} valid_rows={int(packed[5].sum())} "
+                f"launches={count} ms={ms:.6f} plain_ms={plain_s * 1e3:.3f} "
+                f"bound_ms={bound_ms:.6f} of_bound={bound_ms / ms:.4f} vpu_ms={vpu_ms:.6f}")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_s * 1e3
+            tot["bound_ms"] += count * bound_ms
+            tot["vpu_ms"] += count * vpu_ms
+            n += count
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/ed25519_mxu.cu",
+        "replaces": "mirbft_tpu/ops/ed25519.py:234 (_mul_mxu in _verify_kernel_body :372)",
+        "launches": launches,
+        "launches_by_path": {p: entry[0][name] for p, entry in paths.items()},
+        "max_abs_err": worst[name],
+        "ms": tot["ms"] / n,
+        "plain_ms": tot["plain_ms"] / n,
+        "bound_ms": tot["bound_ms"] / n,
+        "bound_by": "operations",
+        "library_ms": None,
+        "vpu_ms": tot["vpu_ms"] / n,
     }
 
 
@@ -3789,6 +4144,7 @@ def main() -> int:
         f"{fast_build['module'].__name__} in {fast_build['seconds']:.2f} s")
     log(_build.ptxas_report("sha256").strip())
     log(_build.ptxas_report("ed25519").strip())
+    log(_build.ptxas_report("ed25519_mxu").strip())
     log(_build.ptxas_report("quorum").strip())
     log(_build.ptxas_report("mesh").strip())
     log(_build.ptxas_report("pack").strip())
@@ -3802,6 +4158,9 @@ def main() -> int:
         log(f"sass {name}: {sum(ops.values())} instructions (ladder and inversion loops "
             f"appear once); local stack loads LDL={ops.get('LDL', 0)} stores "
             f"STL={ops.get('STL', 0)}; all {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    mxu_regs = ptxas_kernel(_build.ptxas_report("ed25519_mxu"), "ed25519_verify_mxu_kernel")
+    log(f"ptxas ed25519_verify_mxu_kernel: {mxu_regs} (no __launch_bounds__ minimum: "
+        f"nothing caps its registers; its noinline field functions' frames are above)")
     quorum_regs = ptxas_kernel(_build.ptxas_report("quorum"), "quorum_accumulate_kernel")
     log(f"ptxas quorum_accumulate_kernel: {quorum_regs}")
     if quorum_regs.get("spill_stores", 1) or quorum_regs.get("spill_loads", 1) or \
@@ -3813,11 +4172,7 @@ def main() -> int:
             f"ATOMS={ops.get('ATOMS', 0)} generic ATOM={ops.get('ATOM', 0)}; all "
             f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
 
-    from mirbft_tpu_torch.ops.crossover import (
-        hash_crossover_batch,
-        measure_hash_probe,
-        measure_verify_probe,
-    )
+    from mirbft_tpu_torch.ops.crossover import hash_crossover_batch, measure_hash_probe
     from mirbft_tpu_torch.ops import latency_probe
 
     latency, probe_hz = latency_probe.dependent_issue_latency()
@@ -3840,19 +4195,25 @@ def main() -> int:
             for op in latency_probe.FIELD_OPS))
 
     lap("device_build_probes")
+    # The process's first verify probe, as a card's first verifier takes
+    # it at construction (phase 3 builds one): its wall seconds are the
+    # one-time cost of "auto"; the kernels are built and not yet loaded.
+    (vpu_s, mxu_s), first_s = take_verify_probe()
+    log(f"verify probe: vpu_s={vpu_s:.9f} mxu_s={mxu_s:.9f} (each kernel on 256 zero "
+        f"rows, CUDA events, the first \"auto\" resolution's race) auto resolves to "
+        f"{verify_counter()} first_use_wall_s={first_s:.6f} (loading both libraries, a "
+        f"warm-up and 5 timed launches of each kernel) | {smi}")
     worst = check_kernels(clock)
     worst["pack_wave"] = check_pack()
-    worst["ed25519_verify"] = check_ed25519(clock)
+    worst["ed25519_verify"], pool = check_ed25519(clock)
+    worst["ed25519_verify_mxu"] = check_ed25519_mxu(clock, pool)
     worst["quorum_accumulate"] = check_quorum()
     check_fused(clock)
-    # The one-time probes launch the kernels: take them before the paths,
-    # whose launch counts must hold path launches only.
+    check_fused_mxu()
     probe = measure_hash_probe("cuda")
     log(f"crossover: lanes_tile_s={probe[0]:.9f} batch_fixed_s={probe[1]:.9f} "
         f"batch_slope_s_per_msg={probe[2]:.15f} (128 to 4096 messages) "
         f"crossover_batch={hash_crossover_batch('cuda')}")
-    log(f"verify probe: vpu_s={measure_verify_probe('cuda')[0]:.9f} (256 zero rows); "
-        f"auto resolves to vpu, the card's one verify kernel")
 
     lap("kernels_fused")
     paths, host_fps = drive_paths()

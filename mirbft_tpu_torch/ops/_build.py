@@ -12,6 +12,9 @@ kernel's registers, shared memory and spills) is kept beside the library as
 ``lib<name>-<key>.ptxas.txt``.  ``other_library`` builds another revision of
 a source the same way, so that the A/B scripts (``ab_sha256.py``,
 ``ab_ed25519.py``, ``ab_quorum.py``) can time two revisions in one process.
+The two Ed25519 verify kernels are two libraries: ``ed25519`` (the "vpu"
+backend, ``csrc/ed25519.cu``) and ``ed25519_mxu`` (the tensor-core "mxu"
+backend, ``csrc/ed25519_mxu.cu``).
 
 Several processes may reach first use at once (the cohost deployment starts
 one per host): every build holds an ``fcntl`` lock on ``_build/.lock``, and
@@ -54,6 +57,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "ed25519": {
         "mirbft_ed25519_verify": ((_P, _P, _P, _P, _P, _I64, _P, _P), ctypes.c_int),
+        "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
+    },
+    "ed25519_mxu": {
+        "mirbft_ed25519_verify_mxu": ((_P, _P, _P, _P, _P, _I64, _P, _P), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),
     },
     "quorum": {

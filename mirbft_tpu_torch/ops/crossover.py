@@ -15,9 +15,14 @@ batch-major kernel pays a fixed cost per launch and scales per message.  So
   batch-major kernel.  ``TorchHasher`` takes the probe when it is built,
   so no wave's latency carries it.
 
-The verifier's field-multiply backend resolves the same way: ``auto`` is
-"vpu", the one verify kernel the card has (``measure_verify_probe`` times
-it; the tensor-core "mxu" formulation runs only as the CPU twin).
+The verifier's field-multiply backend resolves the same way: on the CPU
+``auto`` is "vpu"; on the card the first ``auto`` resolution of a process
+races the two verify kernels, "vpu" (``csrc/ed25519.cu``) and "mxu"
+(``csrc/ed25519_mxu.cu``, the contraction on the tensor cores), on one
+``_PROBE_VERIFY_BATCH``-row wave (``measure_verify_probe``, cached for the
+process) and keeps the faster, as the JAX package does on its accelerator.
+``Ed25519BatchVerifier`` resolves "auto" on the card when it is built, so
+no dispatch's latency carries the probe either.
 
 Every resolver takes the backend name and the probe result as injectable
 arguments, so the CPU tests pin the resolution logic.  The environment
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -152,12 +158,24 @@ def resolve_hash_kernel(
     return "scan"
 
 
-@functools.lru_cache(maxsize=None)
+# The verify probe's cache fills under the lock.
+MIRLINT_SHARED_STATE = {"_verify_probe": "_VERIFY_PROBE_LOCK"}
+_VERIFY_PROBE_LOCK = threading.Lock()
+
+
 def measure_verify_probe(backend: Optional[str] = None) -> Tuple[float, float]:
     """(vpu_seconds, mxu_seconds) for one ``_PROBE_VERIFY_BATCH`` verify
-    wave on the card, by CUDA events.  The card has no "mxu" kernel yet
-    (``ed25519.MXU_NOT_PORTED``), so its time is infinite.  Only called for
-    the "cuda" backend (callers gate)."""
+    wave on the card, each kernel timed by CUDA events on the same zero
+    rows; measured once per process.  Threads that ask together wait for
+    the one probe (a cache alone lets each miss measure, and they would
+    time each other's kernels).  Only called for the "cuda" backend
+    (callers gate)."""
+    with _VERIFY_PROBE_LOCK:
+        return _verify_probe(backend)
+
+
+@functools.lru_cache(maxsize=None)
+def _verify_probe(backend: Optional[str]) -> Tuple[float, float]:
     import torch
 
     from .ed25519 import NUM_LIMBS, ed25519_verify_kernel
@@ -165,11 +183,11 @@ def measure_verify_probe(backend: Optional[str] = None) -> Tuple[float, float]:
     batch = _PROBE_VERIFY_BATCH
     limbs = torch.zeros((batch, NUM_LIMBS), dtype=torch.int32, device="cuda")
     bits = torch.zeros((batch, 256), dtype=torch.int32, device="cuda")
-    vpu_t = time_cuda(
-        lambda: ed25519_verify_kernel(limbs, limbs, limbs, bits, bits, backend="vpu"),
-        repeats=5,
-    )
-    return vpu_t, float("inf")
+
+    def wave(name):
+        return lambda: ed25519_verify_kernel(limbs, limbs, limbs, bits, bits, backend=name)
+
+    return time_cuda(wave("vpu"), repeats=5), time_cuda(wave("mxu"), repeats=5)
 
 
 def resolve_verify_backend(
@@ -178,16 +196,18 @@ def resolve_verify_backend(
     probe: Optional[Tuple[float, float]] = None,
 ) -> str:
     """Resolve a verifier's ``kernel`` setting: explicit names pass
-    through; ``auto`` is "vpu" on the CPU and on the card.  A probe, where
-    one is given, picks "mxu" exactly when it is faster; no probe is taken
-    by default, since the card has one verify kernel."""
+    through; ``auto`` is "vpu" on the CPU and the probe's winner on the
+    card ("mxu" exactly when it is faster), the probe taken once per
+    process unless one is given."""
     if requested != "auto":
         return requested
     env = os.environ.get(ENV_VERIFY_KERNEL)
     if env in ("vpu", "mxu"):
         return env
     backend = backend or _default_backend()
-    if backend != "cuda" or probe is None:
+    if backend != "cuda":
         return "vpu"
+    if probe is None:
+        probe = measure_verify_probe(backend)
     vpu_t, mxu_t = probe
     return "mxu" if mxu_t < vpu_t else "vpu"

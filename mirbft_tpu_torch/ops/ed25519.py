@@ -6,10 +6,13 @@ verify them in waves before a proposal may be persisted and acknowledged.
 The host side (curve constants, limb helpers, the pure-Python RFC 8032 code,
 the process-wide key caches, the S < L screen and the vectorized wave
 packer ``pack_inputs``) is the JAX package's numpy code, copied unchanged so
-both packages pack bit-identical waves.  The device side is one
-hand-written CUDA kernel (``csrc/ed25519.cu``, ``ed25519_verify_kernel``:
-what bounds it and what its design does about that are noted there), which
-computes ``compress([S]B + [h](-A)) == R`` for every row of a wave.
+both packages pack bit-identical waves.  The device side is two
+hand-written CUDA kernels, one for each field-multiply backend of the JAX
+program, each computing ``compress([S]B + [h](-A)) == R`` for every row of
+a wave: "vpu" (``csrc/ed25519.cu``, ``ed25519_verify_kernel``) and "mxu"
+(``csrc/ed25519_mxu.cu``, ``ed25519_verify_mxu_kernel``: the nibble
+contraction of every field multiply on the tensor cores).  What bounds each
+and what its design does about that are noted in its source.
 
 ``verify_torch`` is the plain PyTorch version of that contract, written in
 the JAX program's own terms: GF(2^255 - 19) elements as 32 signed 8-bit
@@ -378,12 +381,6 @@ def verify_torch(ax, ay, r_bytes, s_bits, h_bits, mul=None):
 # The kernel's wrapper.
 # ---------------------------------------------------------------------------
 
-MXU_NOT_PORTED = (
-    "the tensor-core ('mxu') field multiply has no CUDA kernel yet: "
-    "ROADMAP.md, 'Next, in order' item 7"
-)
-
-
 def _check(ax, ay, r_bytes, s_bits, h_bits):
     import torch
 
@@ -405,33 +402,51 @@ def _check(ax, ay, r_bytes, s_bits, h_bits):
             raise ValueError(f"{name} must be contiguous")
 
 
+class _LaunchCount:
+    """The launch count of one verify kernel, in ``.launches``."""
+
+    launches = 0
+
+
+# The "mxu" kernel's launch count.  Both backends launch through the one
+# wrapper, ``ed25519_verify_kernel``, whose own ``.launches`` counts "vpu".
+ed25519_verify_mxu_kernel = _LaunchCount()
+
+# backend -> (library, C launcher, kernel name for errors, the twin's
+# field multiply).
+_BACKENDS = {
+    "vpu": ("ed25519", "mirbft_ed25519_verify", "ed25519_verify", _mul_vpu),
+    "mxu": ("ed25519_mxu", "mirbft_ed25519_verify_mxu", "ed25519_verify_mxu", _mul_mxu),
+}
+
+
 def ed25519_verify_kernel(ax, ay, r_bytes, s_bits, h_bits, backend: str = "vpu"):
-    """Verify a packed wave: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (``backend`` picks the twin's field multiply,
-    "vpu" or "mxu"; the card has the "vpu" kernel only).  Returns [B] bool
-    and counts kernel launches in ``ed25519_verify_kernel.launches``."""
+    """Verify a packed wave: a CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  ``backend`` picks the field multiply: "vpu"
+    (``csrc/ed25519.cu``; the twin ``verify_torch`` with ``_mul_vpu``) or
+    "mxu" (``csrc/ed25519_mxu.cu``, each multiply's nibble contraction by
+    int8 ``mma.sync`` on the tensor cores; the twin with ``_mul_mxu``).
+    Returns [B] bool and counts kernel launches in
+    ``ed25519_verify_kernel.launches`` ("vpu") and
+    ``ed25519_verify_mxu_kernel.launches`` ("mxu")."""
     import torch
 
-    if backend not in ("vpu", "mxu"):
+    if backend not in _BACKENDS:
         raise ValueError(f"unknown ed25519 kernel backend {backend!r}")
+    name, launcher, what, mul = _BACKENDS[backend]
     _check(ax, ay, r_bytes, s_bits, h_bits)
     if ax.device.type == "cpu":
-        return verify_torch(
-            ax, ay, r_bytes, s_bits, h_bits,
-            mul=_mul_mxu if backend == "mxu" else _mul_vpu,
-        )
+        return verify_torch(ax, ay, r_bytes, s_bits, h_bits, mul=mul)
     if ax.device.type != "cuda":
         raise ValueError(f"unsupported device {ax.device}")
-    if backend == "mxu":
-        raise NotImplementedError(MXU_NOT_PORTED)
     from . import _build
 
     rows = ax.shape[0]
     out = torch.empty(rows, dtype=torch.uint8, device=ax.device)
     if rows == 0:
         return out.view(torch.bool)  # nothing to launch
-    lib = _build.library("ed25519")
-    code = lib.mirbft_ed25519_verify(
+    lib = _build.library(name)
+    code = getattr(lib, launcher)(
         ax.data_ptr(),
         ay.data_ptr(),
         r_bytes.data_ptr(),
@@ -441,8 +456,9 @@ def ed25519_verify_kernel(ax, ay, r_bytes, s_bits, h_bits, backend: str = "vpu")
         out.data_ptr(),
         torch.cuda.current_stream(ax.device).cuda_stream,
     )
-    _build.check(lib, code, "ed25519_verify")
-    ed25519_verify_kernel.launches += 1
+    _build.check(lib, code, what)
+    counter = ed25519_verify_mxu_kernel if backend == "mxu" else ed25519_verify_kernel
+    counter.launches += 1
     return out.view(torch.bool)
 
 
@@ -605,9 +621,10 @@ class Ed25519BatchVerifier:
     ``min_device_batch``: below this the pure-Python path is used — launch
     overhead dominates tiny batches.
 
-    ``kernel``: "auto" (``crossover.resolve_verify_backend``: "vpu"), "vpu"
-    or "mxu" (the field-multiply formulation; "mxu" runs on CPU tensors
-    only, through the twin).
+    ``kernel``: "auto" (``crossover.resolve_verify_backend``: "vpu" on the
+    CPU; on the card the faster of the two kernels by a probe taken once
+    per process, at the first construction), "vpu" or "mxu" (the
+    field-multiply formulation, a CUDA kernel each).
 
     ``device``: "cuda" (the default) or "cpu".  On the CPU every wave runs
     the plain PyTorch twin; asking for "cuda" without a card raises.
@@ -638,8 +655,10 @@ class Ed25519BatchVerifier:
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
-        if kernel == "auto" and mesh is not None:
-            # The mesh kernel binds its backend at construction.
+        if kernel == "auto" and (mesh is not None or self.device.type == "cuda"):
+            # Bound at construction: the mesh kernel takes its backend
+            # here, and on the card the first resolution of a process
+            # races the two kernels, which no dispatch's latency carries.
             from .crossover import resolve_verify_backend
 
             kernel = resolve_verify_backend(kernel, backend=self.device.type)

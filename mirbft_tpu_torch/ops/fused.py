@@ -173,7 +173,8 @@ class FusedCryptoPipeline:
         self.hasher = TorchHasher(min_device_batch=1, kernel=kernel, device=device)
         self.device = self.hasher.device
         # ``verify_kernel``: the Ed25519 field-multiply backend ("auto"
-        # resolves through ops/crossover.py at dispatch time).
+        # resolves through ops/crossover.py: on the card when the verifier
+        # is built, on the CPU at dispatch time).
         self.verifier = Ed25519BatchVerifier(
             min_device_batch=1, kernel=verify_kernel, device=device
         )

@@ -322,18 +322,18 @@ def sharded_ed25519_verify(mesh: Mesh, kernel: str = "vpu"):
     ``real``, a [B] bool mask of rows that carry actual signatures (padding
     rows are False and are not counted; a real row whose signature is
     structurally invalid — ``valid`` False — counts as invalid).  The mesh
-    size must divide the batch.  ``kernel`` picks the field multiply: "vpu"
-    (the default) or "mxu", which has no CUDA kernel yet and runs on a CPU
-    mesh only.  Returns (ok [B] bool, invalid 0-d int32), both on the mesh's
-    first device."""
+    size must divide the batch.  ``kernel`` picks the field multiply, and
+    with it each card's verify kernel: "vpu" (the default,
+    ``csrc/ed25519.cu``) or "mxu" (``csrc/ed25519_mxu.cu``, the
+    contraction on the tensor cores); a CPU mesh runs the matching twin.
+    Returns (ok [B] bool, invalid 0-d int32), both on the mesh's first
+    device."""
     import torch
 
-    from ..ops.ed25519 import MXU_NOT_PORTED, ed25519_verify_kernel
+    from ..ops.ed25519 import ed25519_verify_kernel
 
     if kernel not in ("mxu", "vpu"):
         raise ValueError(f"unknown ed25519 kernel backend {kernel!r}")
-    if kernel == "mxu" and mesh.device_type == "cuda":
-        raise NotImplementedError(MXU_NOT_PORTED)
 
     def step(ax, ay, r_bytes, s_bits, h_bits, valid, real):
         shards = _split(mesh, [

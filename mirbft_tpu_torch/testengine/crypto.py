@@ -936,8 +936,9 @@ class DeviceAuthPlane:
         self.wave_size = wave_size
         self.device_floor = device_floor
         self.lookahead = lookahead
-        # ``verify_kernel``: "auto" resolves through ops/crossover.py at
-        # dispatch time; explicit "mxu"/"vpu" pins the field-multiply
+        # ``verify_kernel``: "auto" resolves through ops/crossover.py (on
+        # the card when the verifier is built, on the CPU at dispatch
+        # time); explicit "mxu"/"vpu" pins the field-multiply
         # backend.  ``torch_device``: "cuda" launches the CUDA kernel, "cpu"
         # runs its plain PyTorch twin.  A host-path plane (device=False)
         # never launches, so its verifier sits on the CPU and a host-path

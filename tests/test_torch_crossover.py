@@ -5,8 +5,10 @@ Mirrors tests/test_kernel_crossover.py's injected-probe tests with
 the backend name and probe timings; the probe itself runs on the card
 (chip_smoke.py).  Also pins that CPU tensors always resolve to the plain
 twin ("scan") and that the port reads its own environment override, not the
-JAX package's.  The verifier's backend resolves to "vpu" on both devices
-(the card has one verify kernel); an injected probe can still pick "mxu".
+JAX package's.  The verifier's backend resolves to "vpu" on the CPU; on
+the card "auto" takes the one-time probe that races the two verify kernels
+(monkeypatched here) and keeps the faster, as the JAX package's resolver
+does on its accelerator with the same probe times.
 """
 
 import hashlib
@@ -16,6 +18,7 @@ import pytest
 from mirbft_tpu.ops.crossover import resolve_hash_kernel as ref_resolve
 from mirbft_tpu.ops.crossover import resolve_verify_backend as ref_resolve_verify
 from mirbft_tpu_torch import metrics, tracing
+from mirbft_tpu_torch.ops import crossover
 from mirbft_tpu_torch.ops.crossover import (
     ENV_HASH_KERNEL,
     ENV_VERIFY_KERNEL,
@@ -106,19 +109,50 @@ def test_env_override_lanes_routes_cpu_waves_through_the_lanes_twin(monkeypatch)
     assert hasher.collect(handle) == [hashlib.sha256(m).digest() for m in messages]
 
 
+def _fake_probe(monkeypatch, times):
+    """Stand in for the card's probe: record each call, return ``times``."""
+    calls = []
+
+    def probe(backend=None):
+        calls.append(backend)
+        return times
+
+    monkeypatch.setattr(crossover, "measure_verify_probe", probe)
+    return calls
+
+
 @pytest.mark.parametrize("backend", ["cpu", "cuda"])
-def test_verify_backend_auto_is_vpu(backend):
+def test_verify_backend_auto_is_vpu(monkeypatch, backend):
+    # On the card the probe decides: here the "mxu" kernel is the slower.
+    calls = _fake_probe(monkeypatch, (5.3e-4, 9.0e-3))
     assert resolve_verify_backend("auto", backend=backend) == "vpu"
+    assert calls == ([] if backend == "cpu" else ["cuda"])
     assert Ed25519BatchVerifier(device="cpu").resolved_kernel() == "vpu"
+
+
+@pytest.mark.parametrize("probe", [(2e-3, 1e-3), (1e-3, 2e-3), (1e-3, 1e-3), (5.3e-4, 9.0e-3)])
+def test_verify_backend_auto_on_the_card_takes_the_probe(monkeypatch, probe):
+    """With no probe given, "auto" on "cuda" measures one (cached for the
+    process in the real ``measure_verify_probe``) and keeps the faster
+    kernel, ties to "vpu": the JAX resolver's answer on its accelerator for
+    the same times.  The environment override skips the probe."""
+    calls = _fake_probe(monkeypatch, probe)
+    want = ref_resolve_verify("auto", backend="tpu", probe=probe)
+    assert resolve_verify_backend("auto", backend="cuda") == want
+    assert resolve_verify_backend("auto", backend="cuda", probe=probe) == want
+    assert calls == ["cuda"]
+    monkeypatch.setenv(ENV_VERIFY_KERNEL, "vpu")
+    assert resolve_verify_backend("auto", backend="cuda") == "vpu"
+    assert calls == ["cuda"]
 
 
 def test_verify_backend_explicit_and_injected_probe():
     for explicit in ("vpu", "mxu"):
         assert resolve_verify_backend(explicit, backend="cuda") == explicit
         assert Ed25519BatchVerifier(device="cpu", kernel=explicit).resolved_kernel() == explicit
-    # The card's probe reports no mxu kernel (infinite time) ...
+    # A probe in which "mxu" is the slower keeps "vpu" ...
     assert resolve_verify_backend("auto", backend="cuda", probe=(2e-3, float("inf"))) == "vpu"
-    # ... and a faster mxu kernel would win it, as on the reference's chip.
+    # ... and a faster mxu kernel wins it, as on the reference's chip.
     assert resolve_verify_backend("auto", backend="cuda", probe=(2e-3, 1e-3)) == "mxu"
     assert resolve_verify_backend("auto", backend="cpu", probe=(2e-3, 1e-3)) == "vpu"
 
@@ -130,3 +164,46 @@ def test_verify_env_overrides_are_per_package(monkeypatch):
     monkeypatch.delenv(ENV_VERIFY_KERNEL)
     monkeypatch.setenv("MIRBFT_TPU_VERIFY_KERNEL", "mxu")
     assert resolve_verify_backend("auto", backend="cpu") == "vpu"
+
+
+@pytest.mark.parametrize("probe", [(5.3e-4, 9.0e-3), (2e-3, 1e-3)])
+def test_card_verifier_binds_auto_when_built(monkeypatch, probe):
+    """A card's verifier resolves "auto" at construction, so the probe is
+    never taken inside a dispatch (nor counted in its latency); an explicit
+    backend takes no probe."""
+    import torch
+
+    calls = _fake_probe(monkeypatch, probe)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    verifier = Ed25519BatchVerifier(device="cuda")
+    want = ref_resolve_verify("auto", backend="tpu", probe=probe)
+    assert calls == ["cuda"]
+    assert verifier.kernel == want and verifier.resolved_kernel() == want
+    assert calls == ["cuda"]
+    assert Ed25519BatchVerifier(device="cuda", kernel="vpu").resolved_kernel() == "vpu"
+    assert calls == ["cuda"]
+
+
+def test_verify_probe_is_taken_by_one_thread_at_a_time(monkeypatch):
+    """Threads that resolve "auto" together do not probe at once (each
+    would time the other's kernels): the probe runs under a lock."""
+    import threading
+    import time
+
+    active, most = [0], [0]
+
+    def probe(backend):
+        active[0] += 1
+        most[0] = max(most[0], active[0])
+        time.sleep(0.02)
+        active[0] -= 1
+        return (1e-3, 2e-3)
+
+    monkeypatch.setattr(crossover, "_verify_probe", probe)
+    threads = [threading.Thread(target=crossover.measure_verify_probe, args=("cuda",))
+               for _ in range(4)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    assert most[0] == 1

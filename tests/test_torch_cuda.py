@@ -216,8 +216,37 @@ def test_ed25519_wrapper_rejects_what_the_kernel_does_not_take():
         ed25519.ed25519_verify_kernel(limbs, limbs, limbs, bits[:, :32].contiguous(), bits)
     with pytest.raises(ValueError):
         ed25519.ed25519_verify_kernel(limbs, limbs.cpu(), limbs, bits, bits)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ed25519.ed25519_verify_kernel(limbs, limbs, limbs, bits, bits, backend="mxu")
+    # The "mxu" kernel takes the same inputs and refuses the same.
+    with pytest.raises(TypeError):
+        ed25519.ed25519_verify_kernel(limbs.to(torch.int64), limbs, limbs, bits, bits,
+                                      backend="mxu")
+    with pytest.raises(ValueError):
+        ed25519.ed25519_verify_kernel(limbs, limbs.cpu(), limbs, bits, bits, backend="mxu")
+    before = ed25519.ed25519_verify_mxu_kernel.launches
+    assert ed25519.ed25519_verify_kernel(limbs[:0], limbs[:0], limbs[:0], bits[:0], bits[:0],
+                                         backend="mxu").shape == (0,)
+    assert ed25519.ed25519_verify_mxu_kernel.launches == before  # 0 rows launch nothing
+
+
+@pytest.mark.parametrize("rows", [1, 7, 16, 17, 33, 64, 1024])
+def test_ed25519_mxu_kernel_equals_twin_and_verify_one(rows):
+    """The tensor-core ("mxu") kernel against ``verify_torch`` with
+    ``_mul_mxu`` on the card, bit for bit, and ``verify_one``: partial
+    blocks of 16 rows, padding rows, tampered rows."""
+    _, arrays, expected = _signed_rows()
+    pick = np.arange(rows) % 64
+    inputs = [torch.from_numpy(np.ascontiguousarray(a[pick])).cuda() for a in arrays[:5]]
+    before = (ed25519.ed25519_verify_kernel.launches, ed25519.ed25519_verify_mxu_kernel.launches)
+    got = ed25519.ed25519_verify_kernel(*inputs, backend="mxu")
+    torch.cuda.synchronize()
+    assert (ed25519.ed25519_verify_kernel.launches,
+            ed25519.ed25519_verify_mxu_kernel.launches) == (before[0], before[1] + 1)
+    want = ed25519.verify_torch(*inputs, mul=ed25519._mul_mxu)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert torch.equal(got, ed25519.ed25519_verify_kernel(*inputs))
+    verdicts = got.cpu().numpy() & arrays[5][pick]
+    for i, row in enumerate(pick):
+        assert verdicts[i] == (expected[row] if row < 48 else False)
 
 
 def test_ed25519_verifier_on_the_card():
@@ -471,6 +500,24 @@ def test_mesh_on_the_card():
     assert np.array_equal(ok.cpu().numpy(), plain)
     assert int(invalid) == sum(1 for e in expected if not e)
     graft_entry.dryrun_multichip(mesh.size)
+
+
+def test_mesh_mxu_verify_on_the_card():
+    """sharded_ed25519_verify(kernel="mxu") over every card: each shard
+    launches the "mxu" kernel, and the verdicts equal the twin's (with
+    ``_mul_mxu``) and the count the corrupt real rows."""
+    from mirbft_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(torch.cuda.device_count())
+    (_, _, _), arrays, expected = _signed_rows()
+    real = np.arange(64) < 48
+    before = ed25519.ed25519_verify_mxu_kernel.launches
+    ok, invalid = parallel.sharded_ed25519_verify(mesh, kernel="mxu")(*arrays, real)
+    assert ed25519.ed25519_verify_mxu_kernel.launches == before + mesh.size
+    inputs = [torch.from_numpy(a).cuda() for a in arrays[:5]]
+    plain = ed25519.verify_torch(*inputs, mul=ed25519._mul_mxu).cpu().numpy() & arrays[5]
+    assert np.array_equal(ok.cpu().numpy(), plain)
+    assert int(invalid) == sum(1 for e in expected if not e)
 
 
 def test_mesh_count_back_to_back_launches_leave_the_ticket_zero():

@@ -32,6 +32,7 @@ from mirbft_tpu.testengine import CryptoConfig as RefCryptoConfig
 from mirbft_tpu.testengine import DeviceHashPlane as RefDeviceHashPlane
 from mirbft_tpu.testengine import Spec as RefSpec
 from mirbft_tpu_torch import metrics, parallel, tracing
+from mirbft_tpu_torch.ops import ed25519
 from mirbft_tpu_torch.ops.ed25519 import Ed25519BatchVerifier, keypair_from_seed, verify_one
 from mirbft_tpu_torch.ops.sha256 import digests_from_words, pad_message
 from mirbft_tpu_torch.testengine import CryptoConfig, DeviceHashPlane, Spec
@@ -194,15 +195,20 @@ def test_sharded_ed25519_verify_byzantine_psum(mesh, ref_mesh):
 
 def test_mxu_multiply_on_a_cpu_mesh():
     """kernel="mxu" (the nibble-matmul field multiply) runs its twin on a
-    CPU mesh, equal to the JAX package's mxu mesh verify; on a CUDA mesh it
-    raises, as the card has no mxu kernel yet."""
+    CPU mesh, equal to the JAX package's mxu mesh verify; a CUDA mesh takes
+    it too (its shards launch the mxu kernel: tests/test_torch_cuda.py), and
+    an unknown kernel raises."""
     mesh, ref_mesh2 = parallel.make_mesh(2, device="cpu"), ref.make_mesh(2)
     pubs, msgs, sigs = _signed(3, corrupt_rows=(1,))
     packed = Ed25519BatchVerifier(min_device_batch=1, device="cpu").pack_inputs(
         pubs, msgs, sigs, batch=4
     )
     real = np.arange(4) < 3
+    launches = (ed25519.ed25519_verify_kernel.launches, ed25519.ed25519_verify_mxu_kernel.launches)
     ok, invalid = parallel.sharded_ed25519_verify(mesh, kernel="mxu")(*packed, real)
+    # CPU shards run the twin (verify_torch with _mul_mxu): no launch counted.
+    assert launches == (ed25519.ed25519_verify_kernel.launches,
+                        ed25519.ed25519_verify_mxu_kernel.launches)
     ref_ok, ref_invalid = ref.sharded_ed25519_verify(ref_mesh2, kernel="mxu")(*packed, real)
     assert np.array_equal(ok.numpy(), np.asarray(ref_ok))
     assert ok.numpy().tolist() == [True, False, True, False]
@@ -210,8 +216,9 @@ def test_mxu_multiply_on_a_cpu_mesh():
     with pytest.raises(ValueError):
         parallel.sharded_ed25519_verify(mesh, kernel="tpu")
     cuda_mesh = parallel.Mesh([torch.device("cuda", 0)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        parallel.sharded_ed25519_verify(cuda_mesh, kernel="mxu")
+    assert callable(parallel.sharded_ed25519_verify(cuda_mesh, kernel="mxu"))
+    with pytest.raises(ValueError):
+        parallel.sharded_ed25519_verify(cuda_mesh, kernel="tpu")
 
 
 def test_batch_that_does_not_divide_over_the_mesh_raises(mesh, ref_mesh):
