@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the Ed25519 verify kernel of csrc/ed25519.cu against that of another
+"""Time an Ed25519 verify kernel of the port against that of another
 source, in one process on one card, in turns.
 
     python3 ab_ed25519.py OTHER.cu [OTHER_SERIAL_MULS]
+    python3 ab_ed25519.py --mxu OTHER.cu
 
 OTHER.cu (e.g. an earlier revision of csrc/ed25519.cu) must export
 ``mirbft_ed25519_verify`` with the same signature; it builds with the port's
@@ -10,6 +11,10 @@ nvcc flags beside the port's own library (``_build.other_library``).
 OTHER_SERIAL_MULS is the number of field multiplies one thread of OTHER.cu
 runs in series for a signature, for its cycles per multiply (default 4,375,
 every multiply of a signature: a kernel with one thread per signature).
+With ``--mxu`` both sides are the "mxu" kernel: OTHER.cu is a revision of
+csrc/ed25519_mxu.cu exporting ``mirbft_ed25519_verify_mxu``, timed against
+the current one; each runs its group's 4,870 multiplies in series
+(``chip_smoke.MXU_MULS_PER_VERIFY``), and the bound is ``mxu_bound``.
 
 The waves are the verify waves the signed paths of ``chip_smoke.py`` launch
 (c2_signed's 1,024 rows and 4n_signed_corrupt's 16, captured from one device
@@ -20,8 +25,8 @@ other (CUDA events, ``crossover.time_cuda``), and their outputs must be equal
 bit for bit.  One ``ab ...`` line per wave gives both pairs of times, the
 speedup of the means, each side's cycles per multiply (ms x SM clock / serial
 multiplies), the bound and this side's share of it (as ``chip_smoke.py``
-computes them); ``chiprun_out/ab_ed25519.json`` holds the same rows.  Exits
-nonzero without a card.
+computes them); ``chiprun_out/ab_ed25519.json`` (``ab_ed25519_mxu.json``
+with ``--mxu``) holds the same rows.  Exits nonzero without a card.
 """
 
 from __future__ import annotations
@@ -78,7 +83,10 @@ def pool_waves():
 
 
 def main(argv) -> int:
-    if len(argv) not in (2, 3):
+    mxu = len(argv) == 3 and argv[1] == "--mxu"
+    if mxu:
+        argv = argv[:1] + argv[2:]
+    elif len(argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
@@ -91,16 +99,25 @@ def main(argv) -> int:
     from mirbft_tpu_torch.ops import _build
     from mirbft_tpu_torch.ops.crossover import time_cuda
 
-    serial = {"other": int(argv[2]) if len(argv) == 3 else ONE_THREAD_SERIAL_MULS,
-              "this": chip_smoke.VERIFY_SERIAL_MULS}
+    if mxu:
+        name, launcher, what, bound = ("ed25519_mxu", "mirbft_ed25519_verify_mxu",
+                                       "ed25519_verify_mxu", chip_smoke.mxu_bound)
+        serial = {"other": chip_smoke.MXU_MULS_PER_VERIFY,
+                  "this": chip_smoke.MXU_MULS_PER_VERIFY}
+    else:
+        name, launcher, what = "ed25519", "mirbft_ed25519_verify", "ed25519_verify"
+        serial = {"other": int(argv[2]) if len(argv) == 3 else ONE_THREAD_SERIAL_MULS,
+                  "this": chip_smoke.VERIFY_SERIAL_MULS}
     smi = chip_smoke.nvidia_smi_line()
-    libs = {"other": _build.other_library("ed25519", argv[1]),
-            "this": _build.library("ed25519")}
-    print(f"build {argv[1]}: {_build.ptxas_report('ed25519', argv[1]).strip()}", flush=True)
-    print(f"build this: {_build.ptxas_report('ed25519').strip()}", flush=True)
+    libs = {"other": _build.other_library(name, argv[1]), "this": _build.library(name)}
+    print(f"build {argv[1]}: {_build.ptxas_report(name, argv[1]).strip()}", flush=True)
+    print(f"build this: {_build.ptxas_report(name).strip()}", flush=True)
     hz = chip_smoke.sm_clock_hz()
+    if not mxu:
+        def bound(rows):
+            return chip_smoke.verify_bound(rows, hz)
     print(f"ab: other={argv[1]} ({serial['other']} serial multiplies) "
-          f"this=mirbft_tpu_torch/csrc/ed25519.cu ({serial['this']}) "
+          f"this=mirbft_tpu_torch/csrc/{name}.cu ({serial['this']}) "
           f"sm_clock_mhz={hz / 1e6:.0f} | {smi}", flush=True)
 
     rows_out = []
@@ -111,10 +128,10 @@ def main(argv) -> int:
                 for side in libs}
 
         def launch(side):
-            code = libs[side].mirbft_ed25519_verify(
+            code = getattr(libs[side], launcher)(
                 *(t.data_ptr() for t in inputs), rows, outs[side].data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
-            _build.check(libs[side], code, "ed25519_verify")
+            _build.check(libs[side], code, what)
 
         times = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
@@ -124,7 +141,7 @@ def main(argv) -> int:
             raise AssertionError(f"{where} rows={rows}: outputs differ")
         mean = {side: sum(t) / len(t) for side, t in times.items()}
         cycles = {side: mean[side] * 1e-3 * hz / serial[side] for side in libs}
-        bound_ms, by = chip_smoke.verify_bound(rows, hz)
+        bound_ms, by = bound(rows)
         row = {
             "where": where, "rows": rows, "valid_rows": int(packed[5].sum()),
             "verified": int(outs["this"].sum()),
@@ -134,7 +151,7 @@ def main(argv) -> int:
             "bound_ms": bound_ms, "bound_by": by, "this_of_bound": bound_ms / mean["this"],
         }
         rows_out.append(row)
-        print(f"ab {where} ed25519_verify rows={rows} verified={row['verified']} "
+        print(f"ab {where} {what} rows={rows} verified={row['verified']} "
               f"other_ms={[round(t, 6) for t in times['other']]} "
               f"this_ms={[round(t, 6) for t in times['this']]} speedup={row['speedup']:.3f} "
               f"cycles_per_mul other={cycles['other']:.1f} this={cycles['this']:.1f} "
@@ -142,8 +159,8 @@ def main(argv) -> int:
               flush=True)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "ab_ed25519.json"), "w") as fh:
-        json.dump({"device": smi, "sm_clock_hz": hz, "other": argv[1],
+    with open(os.path.join(out_dir, f"ab_{name}.json"), "w") as fh:
+        json.dump({"device": smi, "sm_clock_hz": hz, "other": argv[1], "kernel": what,
                    "serial_muls": serial, "rows": rows_out}, fh, indent=1)
     print(smi)
     return 0

@@ -23,8 +23,9 @@ Phases (any failure raises, and the script exits nonzero without a result):
             the SM clock (nvidia-smi, sampled while a spin kernel runs) and
             the integer pipes (csrc/latency_probe.cu): the dependent-issue
             latency, the issue cost of each instruction kind, the SHA-256
-            kernels' round chain alone, and the latency of each Ed25519
-            field operation.
+            kernels' round chain alone, the latency of each Ed25519
+            field operation, the cost of an int8 mma.sync on a
+            sub-partition, and of the "mxu" kernel's K tile.
 3. kernels  each kernel at every shape the hash plane gives it (block buckets
             4/16/64, waves of 64/1024/4096, ragged n_blocks including 0 and
             garbage words past every row's last block), at edge shapes (row
@@ -215,10 +216,10 @@ share a signature's multiplies: one of each formula stage).
 "mxu" Ed25519 bound: csrc/ed25519_mxu.cu runs the reference's program, 4,870
 field multiplies a row (the uncached addition of 9 multiplies, the
 inversion's 506); each multiply's 4,096 nibble products and their two 4-bit
-halves (3 integer operations a product) at the INT32 rate, its MMAs' int8
-multiply-adds (160 K tiles x 4 m16n8k32 MMAs for 16 rows: 163,840 a row) at
-the dense int8 rate (1,979 TOPS), or the row's bytes at the HBM rate: the
-largest (the integer work).
+halves (3 integer operations a product) at the INT32 rate, the int8
+multiply-adds of its contraction as first tiled (160 K tiles x 4 m16n8k32
+MMAs for 16 rows: 163,840 a row) at the dense int8 rate (1,979 TOPS), or
+the row's bytes at the HBM rate: the largest (the integer work).
 
 Quorum bound: the bytes one launch must move (each touch's slot, digest,
 valid, gate row, group, post and newbit; a gated touch's 8 claimed words,
@@ -947,7 +948,9 @@ def check_ed25519_mxu(clock, pool):
             f"padding={int((pick >= n_pool).sum())} ms={ms:.6f} plain_ms={plain_s * 1e3:.3f} "
             f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f} "
             f"vpu_ms={vpu_ms:.6f} mxu/vpu={ms / vpu_ms:.2f} "
-            f"ms_per_multiply={ms / MXU_MULS_PER_VERIFY:.6f} max_abs_err={err} "
+            f"ms_per_multiply={ms / MXU_MULS_PER_VERIFY:.6f} "
+            f"cycles_per_multiply={ms * 1e-3 * clock[0] / MXU_MULS_PER_VERIFY:.1f} "
+            f"max_abs_err={err} "
             f"verify_one_rows={len(sample)} ok")
     # S >= L unscreened, as for the vpu kernel: accepted by kernel and twin.
     inputs = [torch.from_numpy(a).to(DEVICE) for a in pool["s_rows"]]
@@ -4159,8 +4162,8 @@ def main() -> int:
             f"appear once); local stack loads LDL={ops.get('LDL', 0)} stores "
             f"STL={ops.get('STL', 0)}; all {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
     mxu_regs = ptxas_kernel(_build.ptxas_report("ed25519_mxu"), "ed25519_verify_mxu_kernel")
-    log(f"ptxas ed25519_verify_mxu_kernel: {mxu_regs} (no __launch_bounds__ minimum: "
-        f"nothing caps its registers; its noinline field functions' frames are above)")
+    log(f"ptxas ed25519_verify_mxu_kernel: {mxu_regs} (__launch_bounds__(256, 2): at most "
+        f"128 registers, two blocks an SM; its noinline field functions' frames are above)")
     quorum_regs = ptxas_kernel(_build.ptxas_report("quorum"), "quorum_accumulate_kernel")
     log(f"ptxas quorum_accumulate_kernel: {quorum_regs}")
     if quorum_regs.get("spill_stores", 1) or quorum_regs.get("spill_loads", 1) or \
@@ -4193,6 +4196,16 @@ def main() -> int:
         "(csrc/ed25519_field.cuh, one warp): " + " ".join(
             f"{op.replace(' ', '_')}={latency_probe.field_cycles(op):.1f}"
             for op in latency_probe.FIELD_OPS))
+    log("mma: cycles per int8-by-uint8 mma.sync of one warp issuing independent MMAs, one warp "
+        "on each of the SM's four sub-partitions / two on each (csrc/latency_probe.cu): " +
+        " ".join(f"{shape}={latency_probe.mma_cycles(shape, 4):.2f}/"
+                 f"{latency_probe.mma_cycles(shape, 8):.2f}"
+                 for shape in latency_probe.MMA_SHAPES))
+    log("tile: cycles per K tile of csrc/ed25519_mxu.cu's contraction, one warp on each "
+        "sub-partition / two / four (csrc/latency_probe.cu): " + " ".join(
+            f"{variant.replace(' ', '_')}=" + "/".join(
+                f"{latency_probe.tile_cycles(variant, warps):.2f}" for warps in (4, 8, 16))
+            for variant in latency_probe.TILE_VARIANTS))
 
     lap("device_build_probes")
     # The process's first verify probe, as a card's first verifier takes

@@ -22,85 +22,104 @@
 // inversion is the reference's square-and-multiply over the bits of p - 2
 // (254 squarings, 252 multiplies); `_freeze` is six carry rounds, two
 // sequential carries and two conditional subtractions of p.  Every row runs
-// every step, branch free, so the rows of a block move in lockstep.
+// every step, branch free, so the rows of a group move in lockstep.
 //
 // The multiply (`_mul_mxu`): each limb splits into 4-bit nibbles, a & 15 in
 // [0, 15] and a >> 4 in [-32, 31], 64 of them; the 4,096 nibble products
-// t = an[i] bn[j] in [-992, 1024] split again into t & 15 and t >> 4, both
-// int8; and the product is the contraction
+// t = an[i] bn[j] in [-992, 1024] split again into t & 15 and t >> 4; and the
+// product is the contraction
 //   c = t_lo Me + 16 t_hi Me + 16 t_lo Mo + 256 t_hi Mo
 // with the reference's fold matrices Me, Mo [4096, 32] (entry 1 or 38 at
 // column ((i + j) mod 64) / 2 for even, resp. odd, i + j; 38 = 2^256 mod p
-// where i + j >= 64), then `_carry(c, 4)`.
+// where i + j >= 64), then `_carry(c, 4)`.  The tensor cores multiply int8 A
+// by uint8 B into int32 accumulators (mma.sync.m16n8k32.s32.s8.u8.s32):
+// every partial sum is an exact integer.  B holds the two digits of each
+// product as 16 (t & 15) in [0, 240] and (t >> 4) + 63 in [1, 127], so the
+// contraction of 16 t_lo is shifted back by 4 bits, and the 63's, a known
+// sum of the fold's weights for each output limb, are subtracted in int32
+// (`bias_of`); the weights 16 and 256 are applied there too (16 x 38 = 608
+// is no int8).
 //
-// Exactness (design (a), int8): the tensor cores multiply int8 by int8 into
-// int32 accumulators (mma.sync.m16n8k32.s32.s8.s8.s32), so every partial sum
-// is an exact integer (|c| < 2^26), with no rounding argument needed; the
-// weights 16 and 256 stay out of the B operand (16 x 38 = 608 does not fit
-// int8) and are applied when the four int32 products are combined.  int8 also
-// runs at twice bf16's dense rate.  Design (b), bf16 with f32 accumulators,
-// would need each dot kept below 2^24 and gains nothing here.
+// The contraction, transposed: the fold is the A operand and the nibble
+// products are B.  A group of 8 signatures is the MMA's N (B's column n is
+// signature n).  Output position p = (i + j) mod 64 feeds limb p / 2 of Me
+// (p even) or Mo (p odd), so the 16 positions [16q, 16q + 16) are one M tile:
+// A's row r < 8 is Me's limb 8q + r, row 8 + r Mo's.  Every pair (i, j)
+// feeds one position, so K is cut along anti-diagonals with wrap-around: tile
+// u of M tile q holds, for h in {0, 1} and 16 positions p = 16q + kk, the
+// pair i = i0 + h, j = (p - i) mod 64, i0 = (16q + 2u) mod 64, weight 38
+// exactly when i > p.  The 32 tiles of an M tile cover its 1,024 pairs once,
+// none padded.  Lane (n, tig) holds the pairs kk = tig + {0, 8, 4, 12} of
+// h = 0 (K = 4 tig + b) and kk = (tig + 1) mod 4 + {0, 8, 4, 12} of h = 1
+// (K = 16 + 4 tig + b), so its four A registers are distinct: each has a
+// weight where the byte's pair feeds the register's row.  Tiles u >= 8 have
+// one weight throughout (38 while 16q + 2u < 64, else 1), so their A
+// registers are constants of the lane; the eight tiles u < 8 mix the two,
+// and a lane selects each register by one compare of its row with u.  A
+// multiply is 4 x 32 tiles, each two MMAs (the two digits), for 8
+// signatures.
 //
-// The contraction on the tensor cores.  A block verifies 16 signatures, the
-// MMA's M: row r of the A operand is signature r.  Me and Mo are 256 KB each
-// in int8, more than a block's shared memory, but they are bands: nibble pair
-// (i, j) feeds output column ((i + j) mod 64) / 2 alone.  So the K dimension
-// is cut along anti-diagonals: a K tile is the 32 pairs (i0 + h, S - i0 + kk)
-// for h in {0, 1}, kk in [0, 16) (S a multiple of 16, i0 even), whose
-// i + j = S + kk covers 16 consecutive positions.  Its even positions feed
-// output limbs (S mod 64) / 2 + [0, 8), one N tile of Me, and its odd ones
-// the same N tile of Mo; every other N tile of the tile is zero and is never
-// issued.  Within the nonzero tile, B[kk, n] is the weight exactly when
-// kk == 2n (Me) or 2n + 1 (Mo), and the weight is 1 for S < 64, 38 else: four
-// constant B fragments, generated in registers from that index rule once per
-// thread.  Tiles whose pairs fall outside [0, 64)^2 read zero nibbles.  Output
-// limbs [8q, 8q + 8) take the tiles with S = 16q and S = 16q + 64: 40 tiles
-// for every q, 160 in all, each four MMAs (t_lo and t_hi against Me and Mo),
-// so 640 m16n8k32 MMAs a multiply for 16 rows.
+// The B registers: lane (n, tig) makes the products of signature n alone.
+// The a nibbles are staged times 16 and the b nibbles packed two a word,
+// w[j] = bn[j] + 65536 bn[(j + 4) mod 64], so one IMAD gives two products
+// already placed: y = w (16 a) + 16 (1008 + 65536 x 1008) = 16 ((t0 + 1008)
+// + 65536 (t1 + 1008)), both t + 1008 in [16, 2032], so bytes 0 and 2 of y
+// are 16 (t & 15) (their low nibble is bits 12-15 of t + 1008: 0) and bytes 1
+// and 3 are (t >> 4) + 63.  One byte permute (PRMT) of two such words is a
+// B register.  Per tile a lane loads a pair of a nibbles (shared by its four
+// lanes) and four packed words, and issues 4 IMADs and 4 permutes for its 8
+// products, then the two MMAs; the tiles are unrolled with compile-time
+// offsets (the wrap of j is folded into a copy of w's last 16 words before
+// w[0]) and alternate between two sets of accumulators.
 //
-// The A operand is formed by the threads in fragment order, from the nibbles
-// staged in shared memory: a[r][i] as words, and b packed two nibbles a word,
-// w[r][j] = bn[j] + 65536 bn[j + 4] (zero outside [0, 64)).  One IMAD gives
-// two products, w a + 1024 (1 + 65536) = (t0 + 1024) + 65536 (t1 + 1024),
-// both halves in [32, 2048]: t & 15 is the half's low nibble, t >> 4 its bits
-// 4-11 less 64, turned into an int8 by two logic operations.  A thread's four
-// bytes of a fragment register are the pairs kk = tig, tig + 8, tig + 4,
-// tig + 12 of its row (the bytes of two packed words, interleaved); the B
-// fragments follow the same order, which is all the K dimension needs.  Rows
-// of w are 100 words apart (4 mod 32), so the 32 lanes of each fragment load
-// hit 32 banks.
-//
-// Layout: one block of four warps for 16 signatures.  In a multiply, warp q
-// runs the 40 tiles of output limbs [8q, 8q + 8) (its tensor cores, its share
-// of the nibble products); every other field operation is row-local, and
-// warp q runs it on rows [4q, 4q + 4), lane k on limb k (the carry passes go
-// through shared memory to lane k + 1).  A multiply is: stage the nibbles
-// (each warp its rows), a block barrier, the tiles, a block barrier, the carry
-// (each warp its rows).  Field elements live in shared memory (`Shared::fe`,
-// 2 KB each); the block takes ~81 KB of dynamic shared memory.  A partial
-// last block runs its spare rows on the last row and stores nothing from them.
+// Layout: one block of eight warps for a group of 8 signatures.  Warp s owns
+// signature s: lane k holds limb k, a carry round is one shift, one
+// `__shfl_sync` from lane k - 1 and one multiply-add (x 38 onto limb 0), and
+// the signature's field elements rest in row s of the group's slots in
+// shared memory.  The point formulas' independent multiplies go in batches
+// of up to four (a ladder step's 17 in six: 3 + 1 + 4 and 4 + 1 + 4; their
+// adds and subs in six too).  A batch: each warp stages its signature's
+// nibbles of every operand pair, a block barrier, warp w contracts half
+// w / 4 (16 tiles) of M tile w % 4 of every multiply into its half's product
+// buffer, a block barrier, each warp sums its signature's two halves, takes
+// off the bias and carries four rounds.  So a ladder step has 12 block
+// barriers for its 17 multiplies, the inversion 2 a multiply: 4,094 for a
+// verification's 4,870.  Adds and subs touch only the warp's own row and
+// need none.  The picks of the 256 steps are read once, in the set-up.  The
+// block takes ~63 KB of shared memory and 256 threads of at most 128
+// registers, so two blocks share an SM.  A partial last group runs its spare
+// rows on the last row and stores nothing from them.
 //
 // What bounds it: one verification is 4,870 field multiplies (1 for -A's T,
 // 9 for B - A, 256 x (8 + 9) in the ladder, 506 in the inversion, 2 for x and
 // y).  Each is, a row, 4,096 nibble products and their two 4-bit halves,
-// ~12,288 integer operations at the INT32 rate (132 SMs x 64 lanes), and
-// 163,840 int8 multiply-adds in the MMAs issued (the dense formulation's
-// [8192] x [8192, 32] x 2 is 524,288) at the int8 dense rate (1,979 TOPS).
-// The integer work is the larger: ~3.7 ms for 1,024 rows against ~0.8 ms of
-// MMAs (~2.6 dense).  What limits this design is one block's chain instead:
-// 4,870 multiplies in series, each 40 tiles whose loads, integer work and
-// MMAs the loop runs one after another, two block barriers and eight carry
-// phases; a launch of up to one block per SM lasts that chain whatever its
-// rows.  On an H100 that chain, not the bound, sets a launch's time (its
-// times beside the vpu kernel's: PERF.md).  This is the simple, right
-// design; making it fast is later work.
+// counted as ~12,288 integer operations at the INT32 rate (132 SMs x 64
+// lanes), and 131,072 int8 multiply-adds in the MMAs issued at the dense
+// int8 rate: ~3.7 ms of integer work for 1,024 rows against ~0.6 ms of MMAs
+// (`chip_smoke.mxu_bound`).  This design issues ~1.6 instructions a product
+// (IMADs on the FMA pipe, permutes on the ALU), under the count; what limits
+// it is the issue of a sub-partition: a tile's ~13 integer and load
+// instructions and its two m16n8k32, which hold the issue of their
+// sub-partition for ~6 cycles each (the `mma` and `tile` probes of
+// csrc/latency_probe.cu), ~1,000 cycles for the 32 tiles a sub-partition
+// runs a multiply; then the staging, the two barriers and the carries.  Up
+// to 1,056 rows (132 groups) a launch lasts one group's chain of multiplies;
+// beyond, the groups fill the card's sub-partitions and it nears the bound.
 //
-// Outside `__CUDACC__` this file is plain C++: `HostCtx` runs each phase on
-// every lane of every warp in turn, and `mma_host` forms the product of the
-// fragments by the PTX ISA's m16n8k32 fragment layouts, so the host build
-// (g++, in the tests) checks the decomposition: the tiles, the packed
-// products, the fragments and the combine, against the reference's
-// `_mul_mxu` limb for limb.
+// Not wgmma: a warpgroup MMA takes 64 rows of A, four M tiles, while a K
+// tile's pairs feed one M tile, so three quarters of its work would be
+// zeros on top of the fold's own sparsity, and its B comes from shared
+// memory, so every nibble product would take a store and a load there.
+// mma.sync keeps B in registers, as the lanes make it.
+//
+// Outside `__CUDACC__` this file is plain C++: a register is `Lanes<T>`, its
+// 32 lanes' values; every statement runs on all 32 lanes before the next
+// (the warp in lockstep), `shfl` permutes lanes, `mma` forms each mma.sync
+// from the 32 lanes' fragments by the PTX ISA's m16n8k32 layouts, and
+// `HostCtx` runs each warp's part of a phase in turn between two barriers.
+// So the host build (g++, in the tests) runs the kernel's own staging, tiles,
+// fragments, combine, carries, point formulas and inversion against the
+// reference limb for limb.
 //
 // Plain C interface for ctypes: the launcher takes device pointers, the row
 // count and a cudaStream_t, launches on that stream without synchronising or
@@ -124,35 +143,45 @@
 namespace mxu {
 
 constexpr int kLimbs = 32;
-constexpr int kRows = 16;                     // signatures a block: the MMA's M
-constexpr int kWarps = 4;                     // warp q: output limbs [8q, 8q + 8)
+constexpr int kSigs = 8;        // signatures a group: the MMA's N; warp s owns the s-th
+constexpr int kTiles = 4;       // M tiles: tile q holds output limbs [8q, 8q + 8)
+constexpr int kHalves = 2;      // the 32 K tiles of an M tile, in two halves
+constexpr int kWarps = kTiles * kHalves;  // warp w: half w / 4 of M tile w % 4
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = kRows / kWarps;  // and rows [4q, 4q + 4) elsewhere
-constexpr int kTilesPerWarp = 40;
-constexpr int kWStride = 100;  // words a row of packed b nibbles; 100 = 4 mod 32
-constexpr int kWOffset = 16;   // w[r][kWOffset + j] for j in [-16, 84)
-constexpr int kAStride = 66;   // words a row of a nibbles
-constexpr int kCStride = 40;
-constexpr int32_t kBias = 1024 + (1024 << 16);
+constexpr int kBatch = 4;       // independent multiplies contracted together
+constexpr int kRow = 36;        // words a row of a product buffer (bank-conflict free)
+constexpr int kAStride = 68;    // words a row of a nibbles
+constexpr int kWStride = 84;    // words a row of packed b nibbles; 84 = 20 mod 32
+constexpr int kWOffset = 16;    // w[s][kWOffset + j] for j in [-16, 64)
+// 16 x (1008 + 65536 x 1008): a packed pair of nibble products t, biased by
+// 1008 = 63 x 16 each (t + 1008 in [16, 2032]), times 16.
+constexpr uint32_t kBias = (1008u + (1008u << 16)) << 4;
 
-// Field-element slots of `Shared::fe`.
+// Slots of the group's field elements: row s of a slot is signature s's.
 enum Slot : int {
+  kQX, kQY, kQZ, kQT,  // the ladder's accumulator Q
+  kT0, kT1, kT2, kT3, kT4, kT5,
+  // The table, in the order the step's pick s + 2h indexes it.
+  kIX, kIY, kIZ, kIT,  // the identity (0, 1, 1, 0)
   kBX, kBY, kBZ, kBT,  // the base point B
   kMX, kMY, kMZ, kMT,  // -A
   kNX, kNY, kNZ, kNT,  // B - A
-  kQX, kQY, kQZ, kQT,  // the ladder's accumulator Q
-  kDX, kDY, kDZ, kDT,  // the addend the step's bit pair picks
   kK2D,                // 2d
-  kT0, kT1, kT2, kT3, kT4, kT5, kT6, kT7, kT8, kT9, kT10, kT11,
-  kSlots
+  kSlots,
+  kAddend = kSlots     // + c: coordinate c of the entry the step picks
+};
+
+// The staged operands of a multiply: the a nibbles and the packed b nibbles.
+struct Staged {
+  int32_t an[kSigs][kAStride];
+  int32_t w[kSigs][kWStride];
 };
 
 struct Shared {
-  int32_t fe[kSlots][kRows][kLimbs];
-  int32_t w[kRows][kWStride];
-  int32_t an[kRows][kAStride];
-  int32_t c[kRows][kCStride];
-  int32_t carry[kRows][kLimbs];
+  int32_t fe[kSlots][kSigs][kLimbs];
+  Staged staged[kBatch];
+  int32_t product[kBatch][kHalves][kSigs * kRow];  // each half's share of a product
+  int32_t picks[256][kSigs];                       // table entry (0-3) of bit b, signature s
 };
 
 // Little-endian bytes of the constants, as the reference's int_to_limbs.
@@ -166,177 +195,444 @@ MXU_TABLE uint8_t k2D[32] = {
     0x59, 0xf1, 0xb2, 0x26, 0x94, 0x9b, 0xd6, 0xeb, 0x56, 0xb1, 0x83, 0x82, 0x9a, 0x14, 0xe0, 0x00,
     0x30, 0xd1, 0xf3, 0xee, 0xf2, 0x80, 0x8e, 0x19, 0xe7, 0xfc, 0xdf, 0x56, 0xdc, 0xd9, 0x06, 0x24};
 
-MXU_INLINE int32_t base_y_limb(int k) { return k == 0 ? 0x58 : 0x66; }
 MXU_INLINE int32_t p_limb(int k) { return k == 0 ? 0xed : (k == 31 ? 0x7f : 0xff); }
 // Bit i of p - 2 = 2^255 - 21, for i < 255 (its low byte is 0xeb).
 MXU_INLINE int inv_exp_bit(int i) { return i >= 8 ? 1 : (0xeb >> i) & 1; }
 
 // ---------------------------------------------------------------------------
-// The contraction's pieces, shared by the card and the host build.
+// Registers.  On the card a register is a value of its thread; on the host,
+// `Lanes<T>` holds the 32 lanes' values and every operation runs lane-wise.
 // ---------------------------------------------------------------------------
 
-// Tile t of output limbs [8q, 8q + 8): S and i0 (see the note above).
-MXU_INLINE void tile_of(int q, int t, int& s0, int& i0) {
-  const int first = 8 * (q + 1);  // tiles with S = 16q: i0 in [0, 16q + 14]
-  if (t < first) {
-    s0 = 16 * q;
-    i0 = 2 * t;
-  } else {             // S = 16q + 64: i0 in [16q, 62]
-    s0 = 16 * q + 64;
-    i0 = 16 * q + 2 * (t - first);
+#ifdef __CUDACC__
+using I32 = int32_t;
+using U32 = uint32_t;
+using I64 = long long;
+using Pred = bool;
+
+MXU_INLINE U32 u32(I32 x) { return (U32)x; }
+MXU_INLINE I32 s32(U32 x) { return (I32)x; }
+MXU_INLINE I64 s64(I32 x) { return (I64)x; }
+template <class T>
+MXU_INLINE T sel(Pred c, T a, T b) {
+  return c ? a : b;
+}
+MXU_INLINE I32 table_at(const uint8_t* t, I32 k) { return t[k]; }
+MXU_INLINE I32 lane_id() { return (I32)(threadIdx.x & 31); }
+MXU_INLINE I32 shfl(I32 v, I32 src) { return __shfl_sync(0xffffffffu, v, src); }
+MXU_INLINE U32 prmt(U32 a, U32 b, unsigned s) { return __byte_perm(a, b, s); }
+MXU_INLINE I32 lds(const int32_t* base, I32 i) { return base[i]; }
+MXU_INLINE void lds2(const int32_t* base, I32 i, I32 out[2]) {
+  const int2 v = *reinterpret_cast<const int2*>(base + i);
+  out[0] = v.x;
+  out[1] = v.y;
+}
+MXU_INLINE void sts(int32_t* base, I32 i, I32 v) { base[i] = v; }
+MXU_INLINE I32 ldg(const int32_t* base, I64 i) { return base[i]; }
+MXU_INLINE void sts2(int32_t* base, I32 i, const I32* v) {
+  *reinterpret_cast<int2*>(base + i) = make_int2(v[0], v[1]);
+}
+MXU_INLINE void sts2_if(Pred p, int32_t* base, I32 i, const I32* v) {
+  if (p) sts2(base, i, v);
+}
+MXU_INLINE void warp_sync() { __syncwarp(); }
+// D += A B, one warp's m16n8k32 MMA of int8 A and uint8 B.
+MXU_INLINE void mma(I32 d[4], const U32 a[4], const U32 b[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#else
+template <class T>
+struct Lanes {
+  T v[32];
+  Lanes() : v() {}
+  Lanes(T x) {  // the same value in every lane
+    for (T& e : v) e = x;
   }
-}
-
-// Pair kk of a tile that byte `byte` of a fragment register of lane group
-// `tig` holds: kk = tig, tig + 8, tig + 4, tig + 12.
-MXU_INLINE int pair_of(int tig, int byte) {
-  return tig + 4 * ((byte & 1) * 2 + (byte >> 1));
-}
-
-// One B fragment register (both of a lane's registers are equal): weight
-// `w` where pair kk feeds column n = groupID, i.e. kk == 2n + parity.
-MXU_INLINE uint32_t b_fragment(int lane, int parity, int w) {
-  const int n = lane >> 2, tig = lane & 3;
-  uint32_t reg = 0;
-  for (int byte = 0; byte < 4; ++byte)
-    if (pair_of(tig, byte) == 2 * n + parity) reg |= (uint32_t)w << (8 * byte);
-  return reg;
-}
-
-// The A fragments of one tile for one lane: t & 15 (lo) and t >> 4 (hi) of
-// the pairs of rows n and n + 8 (registers 0 and 1: i = i0; 2 and 3: i0 + 1).
-MXU_INLINE void a_fragments(const Shared& sh, int lane, int s0, int i0, uint32_t lo[4],
-                            uint32_t hi[4]) {
-  const int n = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int reg = 0; reg < 4; ++reg) {
-    const int row = n + 8 * (reg & 1), h = reg >> 1;
-    const int32_t a = sh.an[row][i0 + h];
-    const int j = kWOffset + s0 - i0 - h + tig;
-    // Products of pairs kk = tig, tig + 4 and tig + 8, tig + 12, biased by
-    // 1024 each half: (t0 + 1024) + 65536 (t1 + 1024), both in [32, 2048].
-    const uint32_t x01 = (uint32_t)(sh.w[row][j] * a + kBias);
-    const uint32_t x23 = (uint32_t)(sh.w[row][j + 8] * a + kBias);
-    lo[reg] = (x01 & 0x000f000fu) | ((x23 & 0x000f000fu) << 8);
-    // (t + 1024) >> 4 in [2, 128] a byte; less 64 as int8: flip bits 6 and
-    // 7, and bit 7 back where bit 6 was set.
-    const uint32_t biased = ((x01 >> 4) & 0x00ff00ffu) | ((x23 << 4) & 0xff00ff00u);
-    hi[reg] = biased ^ 0xc0c0c0c0u ^ ((biased << 1) & 0x80808080u);
+  T& operator[](int i) { return v[i]; }
+  const T& operator[](int i) const { return v[i]; }
+#define MXU_LANEWISE(op)                                          \
+  friend Lanes operator op(const Lanes& a, const Lanes& b) {      \
+    Lanes r;                                                      \
+    for (int i = 0; i < 32; ++i) r.v[i] = (T)(a.v[i] op b.v[i]);  \
+    return r;                                                     \
   }
-}
-
-// Output limbs 8q + 2 tig + {0, 1} of rows n and n + 8 from the four
-// accumulator tiles (C fragment order: row n col 2tig, 2tig + 1, row n + 8
-// the same).
-MXU_INLINE void combine(Shared& sh, int lane, int q, const int32_t acc[4][4]) {
-  const int n = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = n + 8 * (i >> 1), col = 8 * q + 2 * tig + (i & 1);
-    // c = t_lo Me + 16 t_hi Me + 16 t_lo Mo + 256 t_hi Mo, in int32.
-    sh.c[row][col] = acc[0][i] + 16 * acc[1][i] + 16 * acc[2][i] + 256 * acc[3][i];
+  MXU_LANEWISE(+)
+  MXU_LANEWISE(-)
+  MXU_LANEWISE(*)
+  MXU_LANEWISE(&)
+  MXU_LANEWISE(|)
+  MXU_LANEWISE(^)
+  MXU_LANEWISE(>>)
+#undef MXU_LANEWISE
+#define MXU_COMPARE(op)                                              \
+  friend Lanes<bool> operator op(const Lanes& a, const Lanes& b) {   \
+    Lanes<bool> r;                                                   \
+    for (int i = 0; i < 32; ++i) r.v[i] = a.v[i] op b.v[i];          \
+    return r;                                                        \
   }
-}
-
-// ---------------------------------------------------------------------------
-// Field operations.  `C` is the execution context: `lanes(f)` runs f(warp,
-// lane) on every lane (then a warp barrier), `sync()` is a block barrier,
-// `contract()` the tiles of the staged product, `sh()` the shared state.
-// Row-local phases touch only the rows of their warp.
-// ---------------------------------------------------------------------------
-
-// `rounds` carry passes over slot `x`, in place: the reference's `_carry`
-// (the floor shift makes negative limbs borrow; limb 31's carry folds onto
-// limb 0 x 38).
-template <class C>
-MXU_CALL void fe_carry(C& ctx, int x, int rounds) {
-  for (int round = 0; round < rounds; ++round) {
-    ctx.lanes([&](int warp, int k) {
-      Shared& sh = ctx.sh();
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int row = warp * kRowsPerWarp + i;
-        sh.carry[row][k] = sh.fe[x][row][k] >> 8;
-      }
-    });
-    ctx.lanes([&](int warp, int k) {
-      Shared& sh = ctx.sh();
-      const int32_t fold = k == 0 ? 38 : 1;
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int row = warp * kRowsPerWarp + i;
-        sh.fe[x][row][k] = (sh.fe[x][row][k] & 0xff) + sh.carry[row][(k + 31) & 31] * fold;
-      }
-    });
+  MXU_COMPARE(==)
+  MXU_COMPARE(!=)
+  MXU_COMPARE(<)
+  MXU_COMPARE(<=)
+  MXU_COMPARE(>=)
+  MXU_COMPARE(&&)
+#undef MXU_COMPARE
+  // Left shifts as the card's: of the unsigned bits.
+  friend Lanes operator<<(const Lanes& a, const Lanes& b) {
+    Lanes r;
+    for (int i = 0; i < 32; ++i) r.v[i] = (T)((uint32_t)a.v[i] << b.v[i]);
+    return r;
   }
-}
+};
+using I32 = Lanes<int32_t>;
+using U32 = Lanes<uint32_t>;
+using I64 = Lanes<long long>;
+using Pred = Lanes<bool>;
 
-// dst = _carry(a + sign b, 1).
-template <class C>
-MXU_CALL void fe_addsub(C& ctx, int dst, int a, int b, int sign) {
-  ctx.lanes([&](int warp, int k) {
-    Shared& sh = ctx.sh();
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp * kRowsPerWarp + i;
-      sh.fe[dst][row][k] = sh.fe[a][row][k] + sign * sh.fe[b][row][k];
+inline U32 u32(const I32& x) {
+  U32 r;
+  for (int i = 0; i < 32; ++i) r[i] = (uint32_t)x[i];
+  return r;
+}
+inline I32 s32(const U32& x) {
+  I32 r;
+  for (int i = 0; i < 32; ++i) r[i] = (int32_t)x[i];
+  return r;
+}
+inline I64 s64(const I32& x) {
+  I64 r;
+  for (int i = 0; i < 32; ++i) r[i] = x[i];
+  return r;
+}
+inline I32 table_at(const uint8_t* t, const I32& k) {
+  I32 r;
+  for (int i = 0; i < 32; ++i) r[i] = t[k[i]];
+  return r;
+}
+template <class T>
+inline Lanes<T> sel(const Pred& c, const Lanes<T>& a, const Lanes<T>& b) {
+  Lanes<T> r;
+  for (int i = 0; i < 32; ++i) r[i] = c[i] ? a[i] : b[i];
+  return r;
+}
+inline I32 lane_id() {
+  I32 r;
+  for (int i = 0; i < 32; ++i) r[i] = i;
+  return r;
+}
+inline I32 shfl(const I32& v, const I32& src) {
+  I32 r;
+  for (int i = 0; i < 32; ++i) r[i] = v[src[i] & 31];
+  return r;
+}
+// __byte_perm: byte n of the result is byte (s >> 4n) & 7 of {b, a}.
+inline U32 prmt(const U32& a, const U32& b, unsigned s) {
+  U32 r;
+  for (int i = 0; i < 32; ++i) {
+    const uint64_t both = (uint64_t)a[i] | ((uint64_t)b[i] << 32);
+    uint32_t out = 0;
+    for (int n = 0; n < 4; ++n)
+      out |= (uint32_t)((both >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+    r[i] = out;
+  }
+  return r;
+}
+inline I32 lds(const int32_t* base, const I32& i) {
+  I32 r;
+  for (int l = 0; l < 32; ++l) r[l] = base[i[l]];
+  return r;
+}
+inline void lds2(const int32_t* base, const I32& i, I32 out[2]) {
+  for (int k = 0; k < 2; ++k) out[k] = lds(base, i + k);
+}
+inline void sts(int32_t* base, const I32& i, const I32& v) {
+  for (int l = 0; l < 32; ++l) base[i[l]] = v[l];
+}
+inline void sts2_if(const Pred& p, int32_t* base, const I32& i, const I32* v) {
+  for (int l = 0; l < 32; ++l)
+    if (p[l])
+      for (int k = 0; k < 2; ++k) base[i[l] + k] = v[k][l];
+}
+inline void sts2(int32_t* base, const I32& i, const I32* v) { sts2_if(Pred(true), base, i, v); }
+inline void warp_sync() {}
+inline I32 ldg(const int32_t* base, const I64& i) {
+  I32 r;
+  for (int l = 0; l < 32; ++l) r[l] = base[i[l]];
+  return r;
+}
+// D += A B for one warp's m16n8k32 MMA (A int8, B uint8), from the 32 lanes' fragments by
+// the PTX ISA's layouts: A register r, byte b of lane (g, tig) is row
+// g + 8 (r & 1), column 4 tig + b + 16 (r >> 1); B register r, byte b is row
+// 4 tig + b + 16 r, column g; D element r is row g + 8 (r >> 1), column
+// 2 tig + (r & 1).  The sums skip the zero entries of A.
+inline void mma(I32 d[4], const U32 a[4], const U32 b[2]) {
+  int32_t am[16][32], bm[32][8];
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, tig = lane & 3;
+    for (int r = 0; r < 4; ++r)
+      for (int byte = 0; byte < 4; ++byte)
+        am[g + 8 * (r & 1)][4 * tig + byte + 16 * (r >> 1)] = (int8_t)(a[r][lane] >> (8 * byte));
+    for (int r = 0; r < 2; ++r)
+      for (int byte = 0; byte < 4; ++byte)
+        bm[4 * tig + byte + 16 * r][g] = (uint8_t)(b[r][lane] >> (8 * byte));
+  }
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, tig = lane & 3;
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r >> 1), col = 2 * tig + (r & 1);
+      int32_t sum = 0;
+      for (int k = 0; k < 32; ++k)
+        if (am[row][k]) sum += am[row][k] * bm[k][col];
+      d[r][lane] += sum;
     }
+  }
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// The contraction: half `half` of M tile q's 32 K tiles, from the staged
+// nibbles into limbs [8q, 8q + 8) of that half's product buffer (row s
+// signature s's, `kRow` words apart).
+// ---------------------------------------------------------------------------
+
+// One A register of a lane where pair kk = 2g + odd of its tile has weight 1:
+// byte b holds pair tig + {0, 8, 4, 12}[b] (0 where it is another).
+MXU_INLINE U32 fold_fragment(const I32& g, const I32& tig, int odd) {
+  const I32 d = g * 2 + odd - tig;  // 4 x {0, 2, 1, 3}[b] where it matches
+  const I32 b = (((d >> 2) >> 1) | (((d >> 2) & 1) << 1)) & 3;
+  return sel(Pred((d & 3) == 0), u32(I32(1) << (b * 8)), U32(0u));
+}
+
+// One tile: pairs i = i0 + h (the a nibbles at `ai`, staged times 16), b
+// nibbles at `wi` + {0, 8} (h = 0) and `wi1` + {0, 8} (h = 1); products
+// into the accumulators of 16 (t & 15) (lo) and (t >> 4) + 63 (hi).  One
+// IMAD gives y = 16 ((t0 + 1008) + 65536 (t1 + 1008)) for two products:
+// bytes 0 and 2 are 16 (t & 15) (their low nibbles are 0: t + 1008 < 4096),
+// bytes 1 and 3 are (t >> 4) + 63, as uint8; one byte permute of two such
+// words is a B register.
+MXU_INLINE void tile(const int32_t* an, const int32_t* w, const I32& ai, const I32& wi,
+                     const I32& wi1, const U32 a_frag[4], I32 lo[4], I32 hi[4]) {
+  I32 a[2];
+  lds2(an, ai, a);
+  const U32 w0 = u32(lds(w, wi)), w1 = u32(lds(w, wi + 8));
+  const U32 w2 = u32(lds(w, wi1)), w3 = u32(lds(w, wi1 + 8));
+  const U32 y0 = w0 * u32(a[0]) + kBias, y1 = w1 * u32(a[0]) + kBias;
+  const U32 y2 = w2 * u32(a[1]) + kBias, y3 = w3 * u32(a[1]) + kBias;
+  const U32 b_lo[2] = {prmt(y0, y1, 0x6240), prmt(y2, y3, 0x6240)};
+  const U32 b_hi[2] = {prmt(y0, y1, 0x7351), prmt(y2, y3, 0x7351)};
+  mma(lo, a_frag, b_lo);
+  mma(hi, a_frag, b_hi);
+}
+
+// The 8 tiles u = 8 blk + v, i0 = (16q + 16 blk + 2v) mod 64 (blk >= 1), of
+// one weight: 38 while 16q + 2u < 64, else 1.
+MXU_INLINE void tile_block(const Staged& st, int q, int blk, const I32& arow, const I32& wrow,
+                           const I32& wrow1, const U32 one[4], const U32 wide[4], I32 lo[2][4],
+                           I32 hi[2][4]) {
+  const bool big = blk < 4 - q;
+  const U32 a_frag[4] = {big ? wide[0] : one[0], big ? wide[1] : one[1], big ? wide[2] : one[2],
+                         big ? wide[3] : one[3]};
+  const I32 ai = arow + ((16 * q + 16 * blk) & 63), wi = wrow + (64 - 16 * blk),
+            wi1 = wrow1 + (64 - 16 * blk);
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+    tile(&st.an[0][0], &st.w[0][0], ai + 2 * v, wi - 2 * v, wi1 - 2 * v, a_frag, lo[v & 1],
+         hi[v & 1]);
+}
+
+// A lane's constants of the contraction: its A registers of weight 1 and
+// 38, and where its rows of the staged nibbles start.  The pairs of h = 1
+// are the lane's at kk = tig + 1 (mod 4) + {0, 8, 4, 12}: its products take
+// the b words of h = 0 (tig < 3) or those 4 nibbles lower (tig = 3), and
+// its A registers differ from h = 0's.
+struct LaneConsts {
+  U32 one[4], wide[4];
+  I32 g, tig, arow, wrow, wrow1;
+};
+
+MXU_INLINE LaneConsts lane_constants() {
+  LaneConsts c;
+  const I32 lane = lane_id(), tig1 = ((lane & 3) + 1) & 3;
+  c.g = lane >> 2;
+  c.tig = lane & 3;
+  const U32 one[4] = {fold_fragment(c.g, c.tig, 0), fold_fragment(c.g, c.tig, 1),
+                      fold_fragment(c.g, tig1, 0), fold_fragment(c.g, tig1, 1)};
+  for (int r = 0; r < 4; ++r) {
+    c.one[r] = one[r];
+    c.wide[r] = one[r] * 38u;
+  }
+  c.arow = c.g * kAStride;
+  c.wrow = c.g * kWStride + kWOffset + c.tig;
+  c.wrow1 = c.wrow + tig1 - c.tig - 1;
+  return c;
+}
+
+MXU_INLINE void contract(const Staged& st, const LaneConsts& c, int q, int half,
+                         int32_t* product) {
+  const I32 &g = c.g, &tig = c.tig, &arow = c.arow, &wrow = c.wrow, &wrow1 = c.wrow1;
+  const U32 *one = c.one, *wide = c.wide;
+  I32 lo[2][4], hi[2][4];
+  for (int set = 0; set < 2; ++set)
+    for (int r = 0; r < 4; ++r) lo[set][r] = hi[set][r] = 0;
+  if (half == 0) {
+    // Tiles u < 8, i0 = 16q + 2u: the weight turns from 38 to 1 inside.
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const Pred below = g < u, upto = g <= u;
+      const U32 a_frag[4] = {sel(below, wide[0], one[0]), sel(below, wide[1], one[1]),
+                             sel(upto, wide[2], one[2]), sel(below, wide[3], one[3])};
+      tile(&st.an[0][0], &st.w[0][0], arow + (16 * q + 2 * u), wrow - 2 * u, wrow1 - 2 * u,
+           a_frag, lo[u & 1], hi[u & 1]);
+    }
+    tile_block(st, q, 1, arow, wrow, wrow1, one, wide, lo, hi);
+  } else {
+    tile_block(st, q, 2, arow, wrow, wrow1, one, wide, lo, hi);
+    tile_block(st, q, 3, arow, wrow, wrow1, one, wide, lo, hi);
+  }
+  // Limb 8q + g of signatures 2 tig + e: c = t_lo Me + 16 t_hi Me +
+  // 16 t_lo Mo + 256 t_hi Mo (rows g and g + 8 of the accumulators), less
+  // the bias terms 63 (16 Me + 256 Mo) that `bias_of` adds up.
+  for (int e = 0; e < 2; ++e) {
+    const I32 me = ((lo[0][e] + lo[1][e]) >> 4) + (hi[0][e] + hi[1][e]) * 16;
+    const I32 mo = lo[0][2 + e] + lo[1][2 + e] + (hi[0][2 + e] + hi[1][2 + e]) * 256;
+    sts(product, (tig * 2 + e) * kRow + g + 8 * q, me + mo);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Field operations.  Warp s of a group owns signature s: lane k holds limb k
+// of its elements, which rest in row s of the group's slots.  `C` is the
+// execution context: `warps(f)` and `units(f)` run f(s) for this warp's s
+// (on the host, for every warp in turn; `warps` is the signatures' work,
+// `units` the contraction's), `sync()` is the block barrier, `sh()` the
+// shared memory, `bit` the ladder step's.  Everything between two barriers
+// touches the warp's own rows, or shared state no warp writes then.
+// ---------------------------------------------------------------------------
+
+// Row s of a slot, or of the table entry signature s picks at the step's bit
+// (slot kAddend + c: coordinate c of the identity, B, -A or B - A).
+template <class C>
+MXU_INLINE int32_t* row_of(C& ctx, int slot, int s) {
+  if (slot >= kAddend) slot = kIX + 4 * ctx.sh().picks[ctx.bit][s] + (slot - kAddend);
+  return ctx.sh().fe[slot][s];
+}
+
+// `rounds` passes of the reference's `_carry` over N elements, in turn (the
+// floor shift makes negative limbs borrow; limb 31's carry folds onto limb
+// 0 x 38).
+template <int N>
+MXU_INLINE void fe_carry_n(I32 x[N], int rounds) {
+  const I32 lane = lane_id();
+  const I32 prev = (lane + 31) & 31;
+  const I32 fold = sel(Pred(lane == 0), I32(38), I32(1));
+  for (int round = 0; round < rounds; ++round)
+    for (int i = 0; i < N; ++i) x[i] = (x[i] & 0xff) + shfl(x[i] >> 8, prev) * fold;
+}
+
+MXU_INLINE void fe_carry(I32& x, int rounds) { fe_carry_n<1>(&x, rounds); }
+
+// One add (sign 1) or sub (-1) of a batch: dst, a, b as a byte each.
+MXU_INLINE int add_op(int dst, int a, int b, int sign) {
+  return dst | (a << 8) | (b << 16) | (sign < 0 ? 1 << 24 : 0);
+}
+
+// dst_i = _carry(a_i + sign_i b_i, 1) for the N <= 4 independent adds and
+// subs ops[i], their carries in turn.  A destination may be an operand of
+// the batch.
+template <int N, class C>
+MXU_CALL void fe_addsub_n(C& ctx, int op0, int op1, int op2, int op3) {
+  const int ops[kBatch] = {op0, op1, op2, op3};
+  ctx.warps([&](int s) {
+    const I32 lane = lane_id();
+    I32 sums[N];
+    for (int i = 0; i < N; ++i) {
+      const I32 a = lds(row_of(ctx, (ops[i] >> 8) & 0xff, s), lane);
+      const I32 b = lds(row_of(ctx, (ops[i] >> 16) & 0xff, s), lane);
+      sums[i] = ops[i] >> 24 ? a - b : a + b;
+    }
+    fe_carry_n<N>(sums, 1);
+    for (int i = 0; i < N; ++i) sts(row_of(ctx, ops[i] & 0xff, s), lane, sums[i]);
   });
-  fe_carry(ctx, dst, 1);
 }
 
+// The bias terms of limb k of a product, 63 (16 S(2k) + 256 S(2k + 1)):
+// S(p) = (p + 1) + 38 (63 - p) is the sum of the fold's weights at output
+// position p (p + 1 pairs i + j = p, 63 - p pairs i + j = p + 64), each of
+// whose (t >> 4) + 63 carries the 63.
+MXU_INLINE I32 bias_of(const I32& k) { return (I32(40123) - k * 1258) * 1008; }
+
+// One multiply of a batch: dst, a, b as a byte each.
+MXU_INLINE int op(int dst, int a, int b) { return dst | (a << 8) | (b << 16); }
+
+// The contraction of the n staged multiplies: warp w runs half w / 4 of M
+// tile w % 4 of each.
 template <class C>
-MXU_INLINE void fe_add(C& ctx, int dst, int a, int b) {
-  fe_addsub(ctx, dst, a, b, 1);
+MXU_CALL void contract_batch(C& ctx, int n) {
+  ctx.units([&](int w) {
+    const int q = w % kTiles, half = w / kTiles;
+    const LaneConsts c = lane_constants();
+    for (int i = 0; i < n; ++i)
+      contract(ctx.sh().staged[i], c, q, half, ctx.sh().product[i][half]);
+  });
 }
 
-template <class C>
-MXU_INLINE void fe_sub(C& ctx, int dst, int a, int b) {
-  fe_addsub(ctx, dst, a, b, -1);
-}
-
-// dst = _mul_mxu(a, b): stage the nibbles, contract on the tensor cores,
-// carry four rounds.  dst may be a or b.
-template <class C>
-MXU_CALL void fe_mul(C& ctx, int dst, int a, int b) {
-  ctx.lanes([&](int warp, int k) {
-    Shared& sh = ctx.sh();
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp * kRowsPerWarp + i;
-      const int32_t av = sh.fe[a][row][k];
-      sh.an[row][2 * k] = av & 15;
-      sh.an[row][2 * k + 1] = av >> 4;
-      // w[j] = bn[j] + 65536 bn[j + 4]: nibbles 2k, 2k + 1 and those of limb k + 2.
-      const int32_t bv = sh.fe[b][row][k];
-      const int32_t bu = k + 2 < kLimbs ? sh.fe[b][row][k + 2] : 0;
-      sh.w[row][kWOffset + 2 * k] = (bv & 15) + 65536 * (bu & 15);
-      sh.w[row][kWOffset + 2 * k + 1] = (bv >> 4) + 65536 * (bu >> 4);
-      if (k < 2) {  // j = -4..-1: bn[j] = 0
-        sh.w[row][kWOffset - 4 + 2 * k] = 65536 * (bv & 15);
-        sh.w[row][kWOffset - 3 + 2 * k] = 65536 * (bv >> 4);
-      }
+// dst_i = _mul_mxu(a_i, b_i) for the N <= 4 independent multiplies ops[i]:
+// every warp stages its signature's nibbles of each, a block barrier, the
+// contraction, a block barrier, each warp sums its signature's two halves
+// of each product, takes off the bias and carries four rounds.  A
+// destination may be an operand of the batch.
+template <int N, class C>
+MXU_CALL void fe_mul_n(C& ctx, int op0, int op1, int op2, int op3) {
+  const int ops[kBatch] = {op0, op1, op2, op3};
+  ctx.warps([&](int s) {
+    const I32 lane = lane_id();
+    I32 a[N], b[N];
+    for (int i = 0; i < N; ++i) {
+      a[i] = lds(row_of(ctx, (ops[i] >> 8) & 0xff, s), lane);
+      b[i] = lds(row_of(ctx, ops[i] >> 16, s), lane);
+    }
+    for (int i = 0; i < N; ++i) {
+      Staged& st = ctx.sh().staged[i];
+      // a nibbles 2k, 2k + 1: a & 15 and a >> 4 of limb k, times 16 (see
+      // `tile`).
+      const I32 an[2] = {(a[i] & 15) * 16, (a[i] >> 4) * 16};
+      sts2(&st.an[s][0], lane * 2, an);
+      // Packed b nibbles w[j] = bn[j] + 65536 bn[j + 4], j = 2k, 2k + 1: the
+      // nibbles of limbs k and k + 2 (mod 32); w[48, 64) again at w[-16, 0).
+      const I32 u = shfl(b[i], (lane + 2) & 31);
+      const I32 w[2] = {(b[i] & 15) + (u & 15) * 65536, (b[i] >> 4) + (u >> 4) * 65536};
+      sts2(&st.w[s][kWOffset], lane * 2, w);
+      sts2_if(Pred(lane >= 24), &st.w[s][kWOffset], lane * 2 - 64, w);
     }
   });
   ctx.sync();
-  ctx.contract();
+  contract_batch(ctx, N);
   ctx.sync();
-  ctx.lanes([&](int warp, int k) {
-    Shared& sh = ctx.sh();
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp * kRowsPerWarp + i;
-      sh.fe[dst][row][k] = sh.c[row][k];
-    }
+  ctx.warps([&](int s) {
+    const I32 lane = lane_id(), at = lane + s * kRow, bias = bias_of(lane);
+    I32 x[N];
+    for (int i = 0; i < N; ++i)
+      x[i] = lds(ctx.sh().product[i][0], at) + lds(ctx.sh().product[i][1], at) - bias;
+    fe_carry_n<N>(x, 4);
+    for (int i = 0; i < N; ++i) sts(row_of(ctx, ops[i] & 0xff, s), lane, x[i]);
   });
-  fe_carry(ctx, dst, 4);
 }
 
-// The zero borders of the packed b nibbles: j in [-16, -4) and [64, 84).
 template <class C>
-MXU_INLINE void clear_borders(C& ctx) {
-  ctx.lanes([&](int warp, int k) {
-    Shared& sh = ctx.sh();
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp * kRowsPerWarp + i;
-      if (k < 12) sh.w[row][k] = 0;
-      if (k < 20) sh.w[row][kWOffset + 64 + k] = 0;
-    }
+MXU_INLINE void fe_mul(C& ctx, int dst, int a, int b) {
+  fe_mul_n<1>(ctx, op(dst, a, b), 0, 0, 0);
+}
+
+// dst = z.
+template <class C>
+MXU_CALL void fe_copy(C& ctx, int dst, int z) {
+  ctx.warps([&](int s) {
+    const I32 lane = lane_id();
+    sts(row_of(ctx, dst, s), lane, lds(row_of(ctx, z, s), lane));
   });
 }
 
@@ -344,269 +640,193 @@ MXU_INLINE void clear_borders(C& ctx) {
 // bits of p - 2 below its leading one.  dst must differ from z.
 template <class C>
 MXU_CALL void fe_inv(C& ctx, int dst, int z) {
-  ctx.lanes([&](int warp, int k) {
-    Shared& sh = ctx.sh();
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp * kRowsPerWarp + i;
-      sh.fe[dst][row][k] = sh.fe[z][row][k];
-    }
-  });
+  fe_copy(ctx, dst, z);
   for (int bit = 253; bit >= 0; --bit) {
     fe_mul(ctx, dst, dst, dst);
     if (inv_exp_bit(bit)) fe_mul(ctx, dst, dst, z);
   }
 }
 
-// Slot x to its canonical representative, the reference's `_freeze`: six
-// carry rounds, then lane i of each warp takes row i of the warp through the
-// sequential carries and the two conditional subtractions of p.
-template <class C>
-MXU_CALL void fe_freeze(C& ctx, int x) {
-  fe_carry(ctx, x, 6);
-  ctx.lanes([&](int warp, int k) {
-    if (k >= kRowsPerWarp) return;
-    int32_t* v = ctx.sh().fe[x][warp * kRowsPerWarp + k];
-    for (int pass = 0; pass < 2; ++pass) {
-      int32_t carry = 0;
-      for (int i = 0; i < kLimbs; ++i) {
-        const int32_t s = v[i] + carry;
-        v[i] = s & 0xff;
-        carry = s >> 8;
-      }
-      if (pass == 0) v[0] += 38 * carry;  // fold the top carry; the second is 0
+// Row `e`'s canonical representative into v (in every lane), the reference's
+// `_freeze`: six carry rounds (lane k limb k), then the sequential carries
+// and the two conditional subtractions of p on all 32 limbs.
+MXU_INLINE void fe_freeze(int32_t* e, I32 v[kLimbs]) {
+  const I32 lane = lane_id();
+  I32 x = lds(e, lane);
+  fe_carry(x, 6);
+  sts(e, lane, x);
+  warp_sync();
+  for (int i = 0; i < kLimbs; ++i) v[i] = lds(e, I32(i));
+  for (int pass = 0; pass < 2; ++pass) {
+    I32 carry = 0;
+    for (int i = 0; i < kLimbs; ++i) {
+      const I32 t = v[i] + carry;
+      v[i] = t & 0xff;
+      carry = t >> 8;
     }
-    for (int rep = 0; rep < 2; ++rep) {
-      int32_t d[kLimbs];
-      int32_t borrow = 0;
-      for (int i = 0; i < kLimbs; ++i) {
-        const int32_t s = v[i] - p_limb(i) - borrow;
-        borrow = s < 0 ? 1 : 0;
-        d[i] = s + (borrow << 8);
-      }
-      if (borrow == 0)
-        for (int i = 0; i < kLimbs; ++i) v[i] = d[i];
+    if (pass == 0) v[0] = v[0] + carry * 38;  // fold the top carry; the second is 0
+  }
+  for (int rep = 0; rep < 2; ++rep) {
+    I32 d[kLimbs];
+    I32 borrow = 0;
+    for (int i = 0; i < kLimbs; ++i) {
+      const I32 t = v[i] - p_limb(i) - borrow;
+      borrow = sel(Pred(t < 0), I32(1), I32(0));
+      d[i] = t + borrow * 256;
     }
-  });
+    for (int i = 0; i < kLimbs; ++i) v[i] = sel(Pred(borrow == 0), d[i], v[i]);
+  }
 }
 
-// The reference's `_pt_double`: out = 2 p (slots of X, Y, Z, T; out may be p).
+// The reference's `_pt_double`: out = 2 p (slots of X, Y, Z, T; out may be
+// p).  Its 8 multiplies in three batches, its adds and subs in three.
 template <class C>
 MXU_INLINE void pt_double(C& ctx, const int p[4], const int out[4]) {
-  fe_mul(ctx, kT0, p[0], p[0]);  // a
-  fe_mul(ctx, kT1, p[1], p[1]);  // b
-  fe_mul(ctx, kT2, p[2], p[2]);  // zz
-  fe_add(ctx, kT3, kT2, kT2);    // c
-  fe_add(ctx, kT4, kT0, kT1);    // h
-  fe_add(ctx, kT5, p[0], p[1]);  // xy
-  fe_mul(ctx, kT5, kT5, kT5);
-  fe_sub(ctx, kT6, kT4, kT5);    // e
-  fe_sub(ctx, kT7, kT0, kT1);    // g
-  fe_add(ctx, kT8, kT3, kT7);    // f
-  fe_mul(ctx, out[0], kT6, kT8);
-  fe_mul(ctx, out[1], kT7, kT4);
-  fe_mul(ctx, out[2], kT8, kT7);
-  fe_mul(ctx, out[3], kT6, kT4);
+  fe_mul_n<3>(ctx, op(kT0, p[0], p[0]), op(kT1, p[1], p[1]), op(kT2, p[2], p[2]), 0);  // a, b, zz
+  fe_addsub_n<3>(ctx, add_op(kT2, kT2, kT2, 1), add_op(kT3, kT0, kT1, 1),  // c, h
+                 add_op(kT4, p[0], p[1], 1), 0);                           // xy
+  fe_mul(ctx, kT4, kT4, kT4);
+  fe_addsub_n<2>(ctx, add_op(kT4, kT3, kT4, -1), add_op(kT0, kT0, kT1, -1), 0, 0);  // e, g
+  fe_addsub_n<1>(ctx, add_op(kT1, kT2, kT0, 1), 0, 0, 0);                          // f
+  fe_mul_n<4>(ctx, op(out[0], kT4, kT1), op(out[1], kT0, kT3),  // e f, g h
+              op(out[2], kT1, kT0), op(out[3], kT4, kT3));        // f g, e h
 }
 
-// The reference's `_pt_add`: out = p1 + p2 (out may be p1).
+// The reference's `_pt_add`: out = p1 + p2 (out may be p1).  Its 9
+// multiplies in three batches, its adds and subs in three.
 template <class C>
 MXU_INLINE void pt_add(C& ctx, const int p1[4], const int p2[4], const int out[4]) {
-  fe_sub(ctx, kT0, p1[1], p1[0]);
-  fe_sub(ctx, kT1, p2[1], p2[0]);
-  fe_mul(ctx, kT2, kT0, kT1);     // a
-  fe_add(ctx, kT0, p1[1], p1[0]);
-  fe_add(ctx, kT1, p2[1], p2[0]);
-  fe_mul(ctx, kT3, kT0, kT1);     // b
-  fe_mul(ctx, kT4, p1[3], p2[3]);
-  fe_mul(ctx, kT4, kT4, kK2D);    // c
-  fe_mul(ctx, kT5, p1[2], p2[2]); // zz
-  fe_add(ctx, kT5, kT5, kT5);     // d
-  fe_sub(ctx, kT6, kT3, kT2);     // e
-  fe_sub(ctx, kT7, kT5, kT4);     // f
-  fe_add(ctx, kT8, kT5, kT4);     // g
-  fe_add(ctx, kT9, kT3, kT2);     // h
-  fe_mul(ctx, out[0], kT6, kT7);
-  fe_mul(ctx, out[1], kT8, kT9);
-  fe_mul(ctx, out[2], kT7, kT8);
-  fe_mul(ctx, out[3], kT6, kT9);
+  fe_addsub_n<4>(ctx, add_op(kT0, p1[1], p1[0], -1), add_op(kT1, p2[1], p2[0], -1),
+                 add_op(kT2, p1[1], p1[0], 1), add_op(kT3, p2[1], p2[0], 1));
+  fe_mul_n<4>(ctx, op(kT0, kT0, kT1), op(kT1, kT2, kT3),            // a, b
+              op(kT2, p1[3], p2[3]), op(kT3, p1[2], p2[2]));           // t1 t2, zz
+  fe_mul(ctx, kT2, kT2, kK2D);   // c
+  fe_addsub_n<3>(ctx, add_op(kT3, kT3, kT3, 1), add_op(kT5, kT1, kT0, 1),  // d, h
+                 add_op(kT0, kT1, kT0, -1), 0);                            // e
+  fe_addsub_n<2>(ctx, add_op(kT4, kT3, kT2, -1), add_op(kT2, kT3, kT2, 1), 0, 0);  // f, g
+  fe_mul_n<4>(ctx, op(out[0], kT0, kT4), op(out[1], kT2, kT5),  // e f, g h
+              op(out[2], kT4, kT2), op(out[3], kT0, kT5));        // f g, e h
 }
 
-// The block's 16 signatures, rows first_row + [0, 16) of the wave (spare
-// rows of a partial block run the last row).  `ok` gets each row's verdict.
+// Row of the wave that signature s of the group runs (spare signatures of a
+// partial last group run the last row).
+MXU_INLINE long long group_row(int s, long long first, long long rows) {
+  return first + s < rows ? first + s : rows - 1;
+}
+
+// The table (the identity, B, 2d, -A = (-x, y, 1, -xy) and B - A) and the
+// picks of every step: each warp its signature's rows.
 template <class C>
-MXU_INLINE void verify_block(C& ctx, const int32_t* ax, const int32_t* ay,
-                             const int32_t* r_bytes, const int32_t* s_bits,
-                             const int32_t* h_bits, long long rows, long long first_row,
-                             uint8_t ok[kRowsPerWarp]) {
-  auto src = [first_row, rows](int row) {
-    const long long g = first_row + row;
-    return g < rows ? g : rows - 1;
-  };
-  clear_borders(ctx);
-  // Constants, -A = (-x, y, 1, -xy) and the identity as Q.
-  ctx.lanes([&](int warp, int k) {
-    Shared& sh = ctx.sh();
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp * kRowsPerWarp + i;
-      const long long g = src(row);
-      sh.fe[kBX][row][k] = kBaseX[k];
-      sh.fe[kBY][row][k] = base_y_limb(k);
-      sh.fe[kBZ][row][k] = k == 0;
-      sh.fe[kBT][row][k] = kBaseT[k];
-      sh.fe[kK2D][row][k] = k2D[k];
-      sh.fe[kMX][row][k] = 0 - ax[g * kLimbs + k];
-      sh.fe[kMY][row][k] = ay[g * kLimbs + k];
-      sh.fe[kMZ][row][k] = k == 0;
-      sh.fe[kQX][row][k] = 0;
-      sh.fe[kQY][row][k] = k == 0;
-      sh.fe[kQZ][row][k] = k == 0;
-      sh.fe[kQT][row][k] = 0;
+MXU_CALL void setup(C& ctx, const int32_t* ax, const int32_t* ay, const int32_t* s_bits,
+                    const int32_t* h_bits, long long rows, long long first) {
+  ctx.warps([&](int s) {
+    const I32 k = lane_id(), zero = 0, one = sel(Pred(k == 0), I32(1), zero);
+    const long long g = group_row(s, first, rows);
+    auto put = [&](int slot, const I32& x) { sts(ctx.sh().fe[slot][s], k, x); };
+    put(kIX, zero);
+    put(kIY, one);
+    put(kIZ, one);
+    put(kIT, zero);
+    put(kBX, table_at(kBaseX, k));
+    put(kBY, sel(Pred(k == 0), I32(0x58), I32(0x66)));
+    put(kBZ, one);
+    put(kBT, table_at(kBaseT, k));
+    put(kK2D, table_at(k2D, k));
+    I32 mx = zero - ldg(ax, I64(g * kLimbs) + s64(k));
+    fe_carry(mx, 1);  // _sub(0, ax)
+    put(kMX, mx);
+    put(kMY, ldg(ay, I64(g * kLimbs) + s64(k)));
+    put(kMZ, one);
+    // The reference's `_pt_select` index s + 2h in wrapping int32, kept
+    // where it is 1, 2 or 3 (B, -A, B - A) and 0 (the identity) for
+    // anything else; lane l takes bits l + 32t.
+    for (int t = 0; t < 8; ++t) {
+      const I32 bit = k + 32 * t;
+      const I64 at = I64(g * 256) + s64(bit);
+      const I32 pick = s32(u32(ldg(s_bits, at)) + u32(ldg(h_bits, at)) * 2u);
+      sts(&ctx.sh().picks[0][s], bit * kSigs, sel(Pred(pick >= 1 && pick <= 3), pick, zero));
     }
   });
-  fe_carry(ctx, kMX, 1);  // _sub(0, ax)
   fe_mul(ctx, kMT, kMX, kMY);
   const int base[4] = {kBX, kBY, kBZ, kBT};
   const int neg_a[4] = {kMX, kMY, kMZ, kMT};
   const int b_neg_a[4] = {kNX, kNY, kNZ, kNT};
-  const int q[4] = {kQX, kQY, kQZ, kQT};
-  const int addend[4] = {kDX, kDY, kDZ, kDT};
   pt_add(ctx, base, neg_a, b_neg_a);
+}
 
-  for (int bit = 255; bit >= 0; --bit) {
-    pt_double(ctx, q, q);
-    // The reference's `_pt_select` on s + 2h in wrapping int32.
-    ctx.lanes([&](int warp, int k) {
-      Shared& sh = ctx.sh();
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int row = warp * kRowsPerWarp + i;
-        const long long g = src(row);
-        const int32_t pick = (int32_t)((uint32_t)s_bits[g * 256 + bit] +
-                                       2u * (uint32_t)h_bits[g * 256 + bit]);
-        for (int c = 0; c < 4; ++c) {
-          int32_t v = c == 1 || c == 2 ? (k == 0) : 0;  // the identity (0, 1, 1, 0)
-          if (pick == 1) v = sh.fe[base[c]][row][k];
-          if (pick == 2) v = sh.fe[neg_a[c]][row][k];
-          if (pick == 3) v = sh.fe[b_neg_a[c]][row][k];
-          sh.fe[addend[c]][row][k] = v;
-        }
-      }
-    });
-    pt_add(ctx, q, addend, q);
-  }
+// One ladder step at `bit`: Q = 2Q, then Q += the table entry s + 2h picks.
+template <class C>
+MXU_CALL void ladder_step(C& ctx, int bit) {
+  const int q[4] = {kQX, kQY, kQZ, kQT};
+  const int addend[4] = {kAddend, kAddend + 1, kAddend + 2, kAddend + 3};
+  pt_double(ctx, q, q);
+  ctx.bit = bit;
+  pt_add(ctx, q, addend, q);
+}
+
+// The group's 8 signatures, rows first + [0, 8) of the wave: f(s, ok) with
+// signature s's verdict in every lane of warp s.
+template <class C, class F>
+MXU_INLINE void verify_group(C& ctx, const int32_t* ax, const int32_t* ay,
+                             const int32_t* r_bytes, const int32_t* s_bits,
+                             const int32_t* h_bits, long long rows, long long first, F f) {
+  setup(ctx, ax, ay, s_bits, h_bits, rows, first);
+  const int q[4] = {kQX, kQY, kQZ, kQT};
+  for (int c = 0; c < 4; ++c) fe_copy(ctx, q[c], kIX + c);  // Q = the identity
+  for (int bit = 255; bit >= 0; --bit) ladder_step(ctx, bit);
 
   // Compress Q: y / Z with the low bit of x / Z in bit 255, against R.
-  fe_inv(ctx, kT10, kQZ);
-  fe_mul(ctx, kT11, kQX, kT10);
-  fe_mul(ctx, kT10, kQY, kT10);
-  fe_freeze(ctx, kT11);
-  fe_freeze(ctx, kT10);
-  ctx.lanes([&](int warp, int k) {
-    if (k >= kRowsPerWarp) return;
-    Shared& sh = ctx.sh();
-    const int row = warp * kRowsPerWarp + k;
-    const int32_t* x = sh.fe[kT11][row];
-    const int32_t* y = sh.fe[kT10][row];
-    const int32_t* r = r_bytes + src(row) * kLimbs;
-    bool same = true;
-    for (int i = 0; i < kLimbs; ++i)
-      same = same && (i == kLimbs - 1 ? y[i] + ((x[0] & 1) << 7) : y[i]) == r[i];
-    ok[k] = same ? 1 : 0;
+  fe_inv(ctx, kT0, kQZ);
+  fe_mul_n<2>(ctx, op(kT1, kQX, kT0), op(kT2, kQY, kT0), 0, 0);
+  ctx.warps([&](int s) {
+    I32 x[kLimbs], y[kLimbs];
+    fe_freeze(ctx.sh().fe[kT1][s], x);
+    fe_freeze(ctx.sh().fe[kT2][s], y);
+    const long long row = group_row(s, first, rows) * kLimbs;
+    y[kLimbs - 1] = y[kLimbs - 1] + (x[0] & 1) * 128;
+    Pred same = true;
+    for (int i = 0; i < kLimbs; ++i) same = same && y[i] == ldg(r_bytes, I64(row + i));
+    f(s, sel(same, I32(1), I32(0)));
   });
 }
 
 #ifndef __CUDACC__
 // ---------------------------------------------------------------------------
-// The host build: every lane of every warp in turn.
+// The host build: each warp's part of every phase in turn.
 // ---------------------------------------------------------------------------
-
-// D += A B for one warp's m16n8k32 s8 MMA, from the 32 lanes' fragments by
-// the PTX ISA's layouts: A register i, byte b of lane (n, tig) is row
-// n + 8 (i & 1), column 4 tig + b + 16 (i >> 1); B register i, byte b is row
-// 4 tig + b + 16 i, column n; D element i is row n + 8 (i >> 1), column
-// 2 tig + (i & 1).  The sums skip the rows of B that are zero.
-inline void mma_host(int32_t d[32][4], const uint32_t a[32][4], const uint32_t b[32][2]) {
-  auto a_at = [a](int row, int col) {  // A[row][col] from its lane's fragment
-    const int lane = 4 * (row & 7) + ((col & 15) >> 2), reg = (row >> 3) + 2 * (col >> 4);
-    return (int32_t)(int8_t)(a[lane][reg] >> (8 * (col & 3)));
-  };
-  int8_t bm[32][8];
-  for (int lane = 0; lane < 32; ++lane) {
-    const int n = lane >> 2, tig = lane & 3;
-    for (int i = 0; i < 2; ++i)
-      for (int byte = 0; byte < 4; ++byte)
-        bm[4 * tig + byte + 16 * i][n] = (int8_t)(b[lane][i] >> (8 * byte));
-  }
-  int nonzero[8][32], count[8] = {};
-  for (int kk = 0; kk < 32; ++kk)
-    for (int col = 0; col < 8; ++col)
-      if (bm[kk][col]) nonzero[col][count[col]++] = kk;
-  for (int lane = 0; lane < 32; ++lane) {
-    const int n = lane >> 2, tig = lane & 3;
-    for (int i = 0; i < 4; ++i) {
-      const int row = n + 8 * (i >> 1), col = 2 * tig + (i & 1);
-      int32_t sum = 0;
-      for (int e = 0; e < count[col]; ++e)
-        sum += a_at(row, nonzero[col][e]) * bm[nonzero[col][e]][col];
-      d[lane][i] += sum;
-    }
-  }
-}
 
 struct HostCtx {
   std::unique_ptr<Shared> state{new Shared()};
+  int bit = 0;
   Shared& sh() { return *state; }
-  template <class F>
-  void lanes(F f) {
-    for (int warp = 0; warp < kWarps; ++warp)
-      for (int lane = 0; lane < 32; ++lane) f(warp, lane);
-  }
   void sync() {}
-  void contract() {
-    for (int q = 0; q < kWarps; ++q) {
-      uint32_t b[4][32][2];  // Me x 1, Me x 38, Mo x 1, Mo x 38
-      for (int lane = 0; lane < 32; ++lane)
-        for (int f = 0; f < 4; ++f)
-          b[f][lane][0] = b[f][lane][1] = b_fragment(lane, f >> 1, f & 1 ? 38 : 1);
-      int32_t acc[4][32][4] = {};
-      for (int t = 0; t < kTilesPerWarp; ++t) {
-        int s0, i0;
-        tile_of(q, t, s0, i0);
-        uint32_t lo[32][4], hi[32][4];
-        for (int lane = 0; lane < 32; ++lane) a_fragments(sh(), lane, s0, i0, lo[lane], hi[lane]);
-        const int wide = s0 >= 64 ? 1 : 0;
-        mma_host(acc[0], lo, b[wide]);
-        mma_host(acc[1], hi, b[wide]);
-        mma_host(acc[2], lo, b[2 + wide]);
-        mma_host(acc[3], hi, b[2 + wide]);
-      }
-      for (int lane = 0; lane < 32; ++lane) {
-        int32_t mine[4][4];
-        for (int f = 0; f < 4; ++f)
-          for (int i = 0; i < 4; ++i) mine[f][i] = acc[f][lane][i];
-        combine(sh(), lane, q, mine);
-      }
-    }
+  template <class F>
+  void warps(F f) {
+    for (int s = 0; s < kSigs; ++s) f(s);
+  }
+  template <class F>
+  void units(F f) {
+    for (int w = 0; w < kWarps; ++w) f(w);
   }
 };
 
-// Rows of x into slot `slot` of a 16-row group (spare rows repeat the last).
-inline void load_group(HostCtx& ctx, int slot, const int32_t* x, long long rows, long long first) {
-  for (int row = 0; row < kRows; ++row) {
-    const long long g = first + row < rows ? first + row : rows - 1;
-    std::memcpy(ctx.sh().fe[slot][row], x + g * kLimbs, sizeof(int32_t) * kLimbs);
-  }
+// Rows [first, first + 8) of x into slot `slot` (spare rows repeat the last).
+inline void load_group(HostCtx& ctx, int slot, const int32_t* x, long long rows,
+                       long long first) {
+  for (int s = 0; s < kSigs; ++s)
+    std::memcpy(ctx.sh().fe[slot][s], x + group_row(s, first, rows) * kLimbs,
+                sizeof(int32_t) * kLimbs);
 }
 
 inline void store_group(HostCtx& ctx, int slot, int32_t* out, long long rows, long long first) {
-  for (int row = 0; row < kRows && first + row < rows; ++row)
-    std::memcpy(out + (first + row) * kLimbs, ctx.sh().fe[slot][row], sizeof(int32_t) * kLimbs);
+  for (int s = 0; s < kSigs && first + s < rows; ++s)
+    std::memcpy(out + (first + s) * kLimbs, ctx.sh().fe[slot][s], sizeof(int32_t) * kLimbs);
 }
 
 // out = _mul_mxu(a, b) for `rows` rows of 32 limbs, by the kernel's multiply.
 inline void mul_host(const int32_t* a, const int32_t* b, int32_t* out, long long rows) {
   HostCtx ctx;
-  clear_borders(ctx);
-  for (long long first = 0; first < rows; first += kRows) {
+  for (long long first = 0; first < rows; first += kSigs) {
     load_group(ctx, kT0, a, rows, first);
     load_group(ctx, kT1, b, rows, first);
     fe_mul(ctx, kT2, kT0, kT1);
@@ -617,11 +837,25 @@ inline void mul_host(const int32_t* a, const int32_t* b, int32_t* out, long long
 // out = _inv(z) with the kernel's multiply.
 inline void inv_host(const int32_t* z, int32_t* out, long long rows) {
   HostCtx ctx;
-  clear_borders(ctx);
-  for (long long first = 0; first < rows; first += kRows) {
-    load_group(ctx, kT0, z, rows, first);
-    fe_inv(ctx, kT1, kT0);
-    store_group(ctx, kT1, out, rows, first);
+  for (long long first = 0; first < rows; first += kSigs) {
+    load_group(ctx, kT1, z, rows, first);
+    fe_inv(ctx, kT0, kT1);
+    store_group(ctx, kT0, out, rows, first);
+  }
+}
+
+// The table of (ax, ay) and the picks by the kernel's set-up, then one
+// ladder step at `bit` from Q = q[0..3] (each [rows, 32]); the new Q into
+// out[0..3].
+inline void ladder_step_host(const int32_t* const q[4], const int32_t* ax, const int32_t* ay,
+                             const int32_t* s_bits, const int32_t* h_bits, int bit,
+                             int32_t* const out[4], long long rows) {
+  HostCtx ctx;
+  for (long long first = 0; first < rows; first += kSigs) {
+    setup(ctx, ax, ay, s_bits, h_bits, rows, first);
+    for (int c = 0; c < 4; ++c) load_group(ctx, kQX + c, q[c], rows, first);
+    ladder_step(ctx, bit);
+    for (int c = 0; c < 4; ++c) store_group(ctx, kQX + c, out[c], rows, first);
   }
 }
 #endif  // !__CUDACC__
@@ -632,50 +866,25 @@ inline void inv_host(const int32_t* z, int32_t* out, long long rows) {
 
 namespace {
 
-__device__ __forceinline__ void mma_s8(int32_t d[4], const uint32_t a[4], uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(b));
-}
-
-// This thread's lane of the block.
+// This thread's warp of the block: the signature it owns.
 struct DevCtx {
-  int warp, lane;
-  uint32_t b[4];  // B fragments: Me x 1, Me x 38, Mo x 1, Mo x 38
+  int warp, bit;
   __device__ __forceinline__ mxu::Shared& sh() {
     extern __shared__ __align__(16) unsigned char mxu_smem[];
     return *reinterpret_cast<mxu::Shared*>(mxu_smem);
   }
-  template <class F>
-  __device__ __forceinline__ void lanes(F f) {
-    f(warp, lane);
-    __syncwarp();
-  }
   __device__ __forceinline__ void sync() { __syncthreads(); }
-  // Warp q's 40 tiles: output limbs [8q, 8q + 8) of the staged product.
-  __device__ __noinline__ void contract() {
-    int32_t acc[4][4] = {};
-    mxu::Shared& s = sh();
-#pragma unroll 1
-    for (int t = 0; t < mxu::kTilesPerWarp; ++t) {
-      int s0, i0;
-      mxu::tile_of(warp, t, s0, i0);
-      uint32_t lo[4], hi[4];
-      mxu::a_fragments(s, lane, s0, i0, lo, hi);
-      const bool wide = s0 >= 64;  // weight 38: selects, not an indexed array
-      const uint32_t be = wide ? b[1] : b[0], bo = wide ? b[3] : b[2];
-      mma_s8(acc[0], lo, be);
-      mma_s8(acc[1], hi, be);
-      mma_s8(acc[2], lo, bo);
-      mma_s8(acc[3], hi, bo);
-    }
-    mxu::combine(s, lane, warp, acc);
+  template <class F>
+  __device__ __forceinline__ void warps(F f) {
+    f(warp);
+  }
+  template <class F>
+  __device__ __forceinline__ void units(F f) {
+    f(warp);
   }
 };
 
-__global__ void __launch_bounds__(mxu::kThreads)
+__global__ void __launch_bounds__(mxu::kThreads, 2)
 ed25519_verify_mxu_kernel(const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
                           const int32_t* __restrict__ r_bytes,
                           const int32_t* __restrict__ s_bits,
@@ -683,15 +892,11 @@ ed25519_verify_mxu_kernel(const int32_t* __restrict__ ax, const int32_t* __restr
                           uint8_t* __restrict__ out) {
   DevCtx ctx;
   ctx.warp = threadIdx.x / 32;
-  ctx.lane = threadIdx.x % 32;
-  for (int f = 0; f < 4; ++f) ctx.b[f] = mxu::b_fragment(ctx.lane, f >> 1, f & 1 ? 38 : 1);
-  const long long first = (long long)blockIdx.x * mxu::kRows;
-  uint8_t ok[mxu::kRowsPerWarp];
-  mxu::verify_block(ctx, ax, ay, r_bytes, s_bits, h_bits, rows, first, ok);
-  if (ctx.lane < mxu::kRowsPerWarp) {
-    const long long row = first + ctx.warp * mxu::kRowsPerWarp + ctx.lane;
-    if (row < rows) out[row] = ok[ctx.lane];
-  }
+  ctx.bit = 0;
+  const long long first = (long long)blockIdx.x * mxu::kSigs;
+  mxu::verify_group(ctx, ax, ay, r_bytes, s_bits, h_bits, rows, first, [&](int s, int ok) {
+    if (threadIdx.x % 32 == 0 && first + s < rows) out[first + s] = (uint8_t)ok;
+  });
 }
 
 }  // namespace
@@ -703,7 +908,7 @@ extern "C" int mirbft_ed25519_verify_mxu(const void* ax, const void* ay, const v
   cudaError_t err = cudaFuncSetAttribute(ed25519_verify_mxu_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((rows + mxu::kRows - 1) / mxu::kRows);
+  const unsigned grid = (unsigned)((rows + mxu::kSigs - 1) / mxu::kSigs);
   ed25519_verify_mxu_kernel<<<grid, mxu::kThreads, bytes, (cudaStream_t)stream>>>(
       (const int32_t*)ax, (const int32_t*)ay, (const int32_t*)r_bytes,
       (const int32_t*)s_bits, (const int32_t*)h_bits, rows, (uint8_t*)out);

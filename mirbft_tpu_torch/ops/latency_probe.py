@@ -9,8 +9,8 @@ between one instruction of the chain and the next, with the SM clock the
 chain ran at.  A SHA-256 round's loop-carried chain is four such
 instructions, so a wave whose longest message has ``n`` live blocks takes at
 least ``n * 64 * 4 * latency`` cycles (``chip_smoke.py``'s ``chain_floor_ms``).
-``issue_cycles``, ``round_cycles`` and ``field_cycles`` time the file's
-other probes, and ``launch_floor_ms`` an empty kernel's launch.
+``issue_cycles``, ``round_cycles``, ``field_cycles``, ``mma_cycles`` and
+``tile_cycles`` time the file's other probes, and ``launch_floor_ms`` an empty kernel's launch.
 They measure the card only: there is no CPU version.
 """
 
@@ -106,6 +106,54 @@ def field_cycles(op: str, calls: int = 1 << 12) -> float:
     )
     _build.check(lib, code, "field_probe")
     return int(out[0].item()) / calls
+
+
+# mma.sync shapes (int8 by uint8) of ``mma_cycles``; the "mxu" verify kernel
+# issues m16n8k32.
+MMA_SHAPES = ("m16n8k32", "m16n8k16", "m8n8k16")
+
+
+def mma_cycles(shape: str = "m16n8k32", warps: int = 4, trips: int = 1 << 10) -> float:
+    """Cycles per int8 by uint8 MMA of ``shape`` (one of ``MMA_SHAPES``) of one warp
+    when ``warps`` warps of one block each issue independent MMAs on eight
+    accumulators: with four warps (one a sub-partition), the MMA's cost on
+    a sub-partition's tensor core; with eight, two warps share one."""
+    import torch
+
+    from . import _build
+
+    lib = _build.library("latency_probe")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    code = lib.mirbft_mma_probe(
+        out.data_ptr(), MMA_SHAPES.index(shape), warps, 7, trips,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check(lib, code, "mma_probe")
+    return int(out[0].item()) / (trips * lib.mirbft_mma_per_trip())
+
+
+# Variants of ``tile_cycles``: the "mxu" kernel's K tile on registers, its
+# integer work alone, its MMAs alone; the tile with its operands loaded from
+# shared memory, and those loads alone.
+TILE_VARIANTS = ("kernel", "integer", "mma", "loaded", "loads")
+
+
+def tile_cycles(variant: str = "kernel", warps: int = 4, trips: int = 1 << 10) -> float:
+    """Cycles per K tile of the "mxu" verify kernel (csrc/ed25519_mxu.cu) of
+    one warp, on registers, when ``warps`` warps of one block each run
+    independent tiles: ``variant`` one of ``TILE_VARIANTS``."""
+    import torch
+
+    from . import _build
+
+    lib = _build.library("latency_probe")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    code = lib.mirbft_tile_probe(
+        out.data_ptr(), TILE_VARIANTS.index(variant), warps, 7, trips,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check(lib, code, "tile_probe")
+    return int(out[0].item()) / (trips * lib.mirbft_tile_per_trip())
 
 
 def launch_floor_ms(repeats: int = 20) -> float:

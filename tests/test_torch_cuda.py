@@ -149,6 +149,12 @@ def test_pipe_probes():
     one = latency_probe.round_cycles(1, blocks=16)
     assert 8.0 <= one <= 200.0
     assert latency_probe.round_cycles(2, blocks=16) > one
+    for shape in latency_probe.MMA_SHAPES:
+        alone = latency_probe.mma_cycles(shape, 4, trips=1 << 6)
+        assert 1.0 <= alone <= 200.0
+        assert latency_probe.mma_cycles(shape, 8, trips=1 << 6) >= alone  # two share one
+    for variant in latency_probe.TILE_VARIANTS:
+        assert 1.0 <= latency_probe.tile_cycles(variant, 4, trips=1 << 6) <= 2_000.0
 
 
 def test_crossover_probe_on_the_card():
@@ -232,7 +238,7 @@ def test_ed25519_wrapper_rejects_what_the_kernel_does_not_take():
 def test_ed25519_mxu_kernel_equals_twin_and_verify_one(rows):
     """The tensor-core ("mxu") kernel against ``verify_torch`` with
     ``_mul_mxu`` on the card, bit for bit, and ``verify_one``: partial
-    blocks of 16 rows, padding rows, tampered rows."""
+    groups of 8 rows, padding rows, tampered rows."""
     _, arrays, expected = _signed_rows()
     pick = np.arange(rows) % 64
     inputs = [torch.from_numpy(np.ascontiguousarray(a[pick])).cuda() for a in arrays[:5]]

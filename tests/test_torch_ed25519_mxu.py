@@ -2,14 +2,18 @@
 
 ``csrc/ed25519_mxu.cu`` (the verify kernel whose field multiplies contract
 their nibble products on the tensor cores) is plain C++ outside
-``__CUDACC__``: built for the host with the C++ compiler, its multiply runs
-the kernel's own staging, K tiles, fragment builders, combine and carry,
-with each ``mma.sync`` formed from the 32 lanes' fragments by the PTX ISA's
-m16n8k32 layouts.  Here that multiply is held to the JAX package's
-``_mul_mxu`` limb for limb (numpy-seeded loose limbs |l| <= 511 and the
-three extreme patterns of ``tests/test_ed25519_tpu.py``'s exactness
-regression), and its inversion to the port's ``_inv(mul=_mul_mxu)``, which
-``tests/test_torch_ed25519.py`` ties to the JAX package.  The wrapper's CPU
+``__CUDACC__``: built for the host with the C++ compiler, every register is
+its 32 lanes' values, and its multiply runs the kernel's own staging, K
+tiles, fragments, combine, lane shuffles and carries, with each
+``mma.sync`` formed from the 32 lanes' fragments by the PTX ISA's m16n8k32
+layouts.  Here that multiply is held to the JAX package's ``_mul_mxu`` limb
+for limb (numpy-seeded loose limbs |l| <= 511 and the three extreme
+patterns of ``tests/test_ed25519_tpu.py``'s exactness regression), its
+inversion to the port's ``_inv(mul=_mul_mxu)``, which
+``tests/test_torch_ed25519.py`` ties to the JAX package, and one ladder
+step (the kernel's table set-up, ``pt_double``, the select and ``pt_add``)
+to the port's ``_pt_double``, ``_pt_select`` and ``_pt_add`` with
+``_mul_mxu``.  The wrapper's CPU
 path (the twin) runs in ``tests/test_torch_parallel.py``'s mxu mesh test;
 here its input checks.  The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -43,6 +47,15 @@ extern "C" void host_mul(const int32_t* a, const int32_t* b, int32_t* out, long 
 }}
 extern "C" void host_inv(const int32_t* z, int32_t* out, long long rows) {{
   mxu::inv_host(z, out, rows);
+}}
+extern "C" void host_ladder_step(const int32_t* qx, const int32_t* qy, const int32_t* qz,
+                                 const int32_t* qt, const int32_t* ax, const int32_t* ay,
+                                 const int32_t* s_bits, const int32_t* h_bits, int bit,
+                                 int32_t* ox, int32_t* oy, int32_t* oz, int32_t* ot,
+                                 long long rows) {{
+  const int32_t* q[4] = {{qx, qy, qz, qt}};
+  int32_t* out[4] = {{ox, oy, oz, ot}};
+  mxu::ladder_step_host(q, ax, ay, s_bits, h_bits, bit, out, rows);
 }}
 """
 
@@ -138,6 +151,44 @@ def test_host_inverse_equals_the_twin(host_build):
     for row, inv in zip(z, got):
         value = port.limbs_to_int(row) % port.P
         assert port.limbs_to_int(inv) * value % port.P == 1
+
+
+def test_host_ladder_step_equals_the_twin(host_build):
+    """16 rows (two groups of 8) through the kernel's set-up of the table
+    {B, -A, B - A} (10 multiplies) and one ladder step, ``pt_double`` then
+    ``pt_add`` of the entry s + 2h picks (17 multiplies), against the
+    twin's ``_pt_double``, ``_pt_select`` and ``_pt_add`` with ``_mul_mxu``,
+    limb for limb.  Q is loose limbs; the picks cover 0-3, and two values
+    outside them (7, and -1 from h = -1), which select the identity."""
+    rng = np.random.default_rng(20261019)
+    rows, bit = 16, 77
+    q = rng.integers(-511, 512, size=(4, rows, 32)).astype(np.int32)
+    ax, ay = rng.integers(0, 256, size=(2, rows, 32)).astype(np.int32)
+    s_bits, h_bits = rng.integers(0, 2, size=(2, rows, 256)).astype(np.int32)
+    s_bits[:6, bit] = [0, 1, 0, 1, 7, 1]
+    h_bits[:6, bit] = [0, 0, 1, 1, 0, -1]
+    out = np.full((4, rows, 32), 7, dtype=np.int32)
+    ptr = lambda a: ctypes.c_void_p(a.ctypes.data)  # noqa: E731
+    host_build.host_ladder_step(*(ptr(x) for x in q), ptr(ax), ptr(ay), ptr(s_bits),
+                                ptr(h_bits), ctypes.c_int(bit), *(ptr(o) for o in out),
+                                ctypes.c_longlong(rows))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64))
+
+    mul = port._mul_mxu
+    one, zero = t(np.tile(port._ONE, (rows, 1))), t(np.zeros((rows, 32)))
+    base = (t(np.tile(port._BX, (rows, 1))), t(np.tile(port._BY, (rows, 1))), one,
+            t(np.tile(port._BT, (rows, 1))))
+    neg_ax = port._sub(torch.zeros_like(t(ax)), t(ax))
+    m_a = (neg_ax, t(ay), one, mul(neg_ax, t(ay)))
+    b_m_a = port._pt_add(base, m_a, mul)
+    acc = port._pt_double(tuple(t(x) for x in q), mul)
+    addend = port._pt_select(t(s_bits[:, bit]) + 2 * t(h_bits[:, bit]), (zero, one, one, zero),
+                             base, m_a, b_m_a)
+    want = port._pt_add(acc, addend, mul)
+    for got, expected in zip(out, want):
+        assert (got == expected.numpy()).all()
 
 
 @pytest.mark.parametrize(
