@@ -24,8 +24,8 @@ Phases (any failure raises, and the script exits nonzero without a result):
             the integer pipes (csrc/latency_probe.cu): the dependent-issue
             latency, the issue cost of each instruction kind, the SHA-256
             kernels' round chain alone, the latency of each Ed25519
-            field operation, the cost of an int8 mma.sync on a
-            sub-partition, and of the "mxu" kernel's K tile.
+            field operation, the cost of the "mxu" kernel's m16n8k32
+            mma.sync on a sub-partition, and of its own K tile.
 3. kernels  each kernel at every shape the hash plane gives it (block buckets
             4/16/64, waves of 64/1024/4096, ragged n_blocks including 0 and
             garbage words past every row's last block), at edge shapes (row
@@ -219,7 +219,12 @@ inversion's 506); each multiply's 4,096 nibble products and their two 4-bit
 halves (3 integer operations a product) at the INT32 rate, the int8
 multiply-adds of its contraction as first tiled (160 K tiles x 4 m16n8k32
 MMAs for 16 rows: 163,840 a row) at the dense int8 rate (1,979 TOPS), or
-the row's bytes at the HBM rate: the largest (the integer work).
+the row's bytes at the HBM rate: the largest (the integer work).  That
+counts the function's work, above what the kernel's design issues (one
+integer operation a product, over the FMA and ALU pipes); beside it,
+design_floor_ms is the design's own floor (mxu_design_floor: a group of 8
+rows on one SM, its 256 m16n8k32 a multiply at the mma probe's cycles on
+each of the SM's four sub-partitions, or its integer work, the larger).
 
 Quorum bound: the bytes one launch must move (each touch's slot, digest,
 valid, gate row, group, post and newbit; a gated touch's 8 claimed words,
@@ -333,6 +338,11 @@ MXU_MULS_PER_VERIFY = 1 + 9 + 256 * 17 + 254 + 252 + 2
 MXU_INT_OPS_PER_MUL = 4096 * 3
 MXU_MACS_PER_MUL = 160 * 4 * 4096 // 16
 INT8_OPS_PER_S = 1.979e15
+# The design's own floor (mxu_design_floor): its MMAs a multiply of a group of
+# 8 rows, and the integer lanes a clock of an SM over the FMA and ALU pipes
+# its IMADs and byte permutes run on.
+MXU_MMAS_PER_GROUP_MUL = 4 * 32 * 2
+MXU_DESIGN_INT_LANES_PER_SM = 2 * 64
 # Paths whose verify waves are pinned to a backend (through the port's
 # environment override, MIRBFT_TPU_TORCH_VERIFY_KERNEL); every other path's
 # verifiers resolve "auto" by the process's one probe (take_verify_probe).
@@ -903,12 +913,33 @@ def mxu_bound(rows):
         "bytes" if bytes_s > max(int_s, mma_s) else "operations")
 
 
-def check_ed25519_mxu(clock, pool):
+def mxu_design_floor(rows, mma_cycles, clock_hz):
+    """(floor_ms, by) of one "mxu" verify launch of ``rows`` rows as
+    csrc/ed25519_mxu.cu is designed: a group of 8 rows runs on one SM, and
+    the groups spread evenly over the 132 SMs, so an SM runs
+    ceil(groups / 132) of them.  A group's multiply is the larger of its
+    MMAs' issue (4 M tiles x 32 K tiles x 2 m16n8k32 over the SM's four
+    sub-partitions, each MMA holding its sub-partition ``mma_cycles``) and
+    its integer work (one operation a nibble product: a lane's 4 IMADs on
+    the FMA pipe and 4 byte permutes on the ALU pipe make its 8 products a
+    tile, both pipes at 64 lanes an SM a clock).  ``mxu_bound`` counts the
+    function's work; this counts the design's, which needs less."""
+    groups = -(-rows // 8)
+    per_sm = -(-groups // 132)
+    tensor_s = (per_sm * MXU_MULS_PER_VERIFY * MXU_MMAS_PER_GROUP_MUL * mma_cycles
+                / (4 * clock_hz))
+    int_s = per_sm * 8 * MXU_MULS_PER_VERIFY * 4096 / (MXU_DESIGN_INT_LANES_PER_SM * clock_hz)
+    return max(tensor_s, int_s) * 1e3, ("tensor-core issue" if tensor_s >= int_s else "integer")
+
+
+def check_ed25519_mxu(clock, pool, mma_cycles):
     """Phase 3, Ed25519 "mxu": the tensor-core verify kernel at every listed
     batch (phase 3's pool: RFC 8032 rows first, then padding rows, then
     random rows) against verify_torch with _mul_mxu on the card, bit for
     bit, and verify_one on sampled rows; the vpu kernel's time on the same
-    inputs beside its own; and the unscreened S >= L rows."""
+    inputs beside its own; and the unscreened S >= L rows.  Beside the
+    bound, the floor of the kernel's own design (``mxu_design_floor``, at
+    the ``mma`` probe's ``mma_cycles``)."""
     import numpy as np
     import torch
 
@@ -944,12 +975,14 @@ def check_ed25519_mxu(clock, pool):
         ms = time_cuda(lambda: kernel(*inputs), repeats=3) * 1e3
         vpu_ms = time_cuda(lambda: e.ed25519_verify_kernel(*inputs), repeats=5) * 1e3
         bound_ms, by = mxu_bound(batch)
+        floor_ms, floor_by = mxu_design_floor(batch, mma_cycles, clock[0])
         log(f"kernel ed25519_verify_mxu batch={batch} verified={int(verdicts.sum())} "
             f"padding={int((pick >= n_pool).sum())} ms={ms:.6f} plain_ms={plain_s * 1e3:.3f} "
             f"bound_ms={bound_ms:.6f} ({by}) of_bound={bound_ms / ms:.4f} "
             f"vpu_ms={vpu_ms:.6f} mxu/vpu={ms / vpu_ms:.2f} "
             f"ms_per_multiply={ms / MXU_MULS_PER_VERIFY:.6f} "
             f"cycles_per_multiply={ms * 1e-3 * clock[0] / MXU_MULS_PER_VERIFY:.1f} "
+            f"design_floor_ms={floor_ms:.6f} ({floor_by}) of_design_floor={floor_ms / ms:.4f} "
             f"max_abs_err={err} "
             f"verify_one_rows={len(sample)} ok")
     # S >= L unscreened, as for the vpu kernel: accepted by kernel and twin.
@@ -2980,6 +3013,24 @@ def embedded_requests():
     return keys, envelopes, forged
 
 
+def dump_thread_stacks(name):
+    """Every thread's name and stack, written to chiprun_out/``name``;
+    returns the path.  A stalled run's record of where each thread waits."""
+    import threading
+    import traceback
+
+    frames = sys._current_frames()
+    path = os.path.join(HERE, "chiprun_out", name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        for thread in threading.enumerate():
+            fh.write(f"--- {thread.name} (daemon={thread.daemon})\n")
+            frame = frames.get(thread.ident)
+            if frame is not None:
+                fh.write("".join(traceback.format_stack(frame)))
+    return path
+
+
 def run_embedded_cluster(tmp, keys, envelopes, forged, tick=None, timeout_s=240):
     """Four threaded Nodes in this process, each with a durable WAL and
     request store, hashing through TorchHasher and gating signed requests
@@ -3064,11 +3115,12 @@ def run_embedded_cluster(tmp, keys, envelopes, forged, tick=None, timeout_s=240)
                 wall = time.perf_counter() - start
                 break
             if time.time() > deadline:
+                stacks = dump_thread_stacks("embedded_stall_stacks.txt")
                 raise AssertionError(
                     f"embedded nodes: not every node holds every request after {timeout_s} s: "
                     f"held {[len(want & l.held()) for l in logs]}, applied "
                     f"{[len(l.commits) for l in logs]}, state transfers "
-                    f"{[l.transfers for l in logs]}")
+                    f"{[l.transfers for l in logs]}; every thread's stack in {stacks}")
             time.sleep(0.05)
         proposer.join(timeout=30)
         epochs = [node.status().epoch_tracker.active_epoch.number for node in nodes]
@@ -4196,16 +4248,15 @@ def main() -> int:
         "(csrc/ed25519_field.cuh, one warp): " + " ".join(
             f"{op.replace(' ', '_')}={latency_probe.field_cycles(op):.1f}"
             for op in latency_probe.FIELD_OPS))
-    log("mma: cycles per int8-by-uint8 mma.sync of one warp issuing independent MMAs, one warp "
-        "on each of the SM's four sub-partitions / two on each (csrc/latency_probe.cu): " +
-        " ".join(f"{shape}={latency_probe.mma_cycles(shape, 4):.2f}/"
-                 f"{latency_probe.mma_cycles(shape, 8):.2f}"
-                 for shape in latency_probe.MMA_SHAPES))
-    log("tile: cycles per K tile of csrc/ed25519_mxu.cu's contraction, one warp on each "
-        "sub-partition / two / four (csrc/latency_probe.cu): " + " ".join(
-            f"{variant.replace(' ', '_')}=" + "/".join(
-                f"{latency_probe.tile_cycles(variant, warps):.2f}" for warps in (4, 8, 16))
-            for variant in latency_probe.TILE_VARIANTS))
+    mma_cycles = (latency_probe.mma_cycles(4), latency_probe.mma_cycles(8))
+    log(f"mma: cycles per int8-by-uint8 m16n8k32 mma.sync (csrc/ed25519_mxu_tile.cuh's) of "
+        f"one warp issuing independent MMAs, one warp on each of the SM's four "
+        f"sub-partitions / two on each (csrc/latency_probe.cu): "
+        f"m16n8k32={mma_cycles[0]:.2f}/{mma_cycles[1]:.2f}")
+    log("tile: cycles per K tile of csrc/ed25519_mxu.cu's contraction (its own tile_block, "
+        "operands staged in shared memory), one warp on each sub-partition / two / four "
+        "(csrc/latency_probe.cu): kernel=" + "/".join(
+            f"{latency_probe.tile_cycles(warps):.2f}" for warps in (4, 8, 16)))
 
     lap("device_build_probes")
     # The process's first verify probe, as a card's first verifier takes
@@ -4219,7 +4270,7 @@ def main() -> int:
     worst = check_kernels(clock)
     worst["pack_wave"] = check_pack()
     worst["ed25519_verify"], pool = check_ed25519(clock)
-    worst["ed25519_verify_mxu"] = check_ed25519_mxu(clock, pool)
+    worst["ed25519_verify_mxu"] = check_ed25519_mxu(clock, pool, mma_cycles[0])
     worst["quorum_accumulate"] = check_quorum()
     check_fused(clock)
     check_fused_mxu()

@@ -27,18 +27,15 @@
 //   two interleaved.
 //
 // - mma: the warps of one block (warp w on sub-partition w % 4), each
-//   issuing independent mma.sync MMAs of int8 by uint8 (m16n8k32,
-//   m16n8k16 or m8n8k16)
-//   on eight accumulators: cycles per MMA of warp 0.  With one warp on each
-//   sub-partition that is the MMA's cost on a sub-partition's tensor core;
-//   with two, whether two warps share it.  The "mxu" verify kernel
-//   (csrc/ed25519_mxu.cu) issues two m16n8k32 a K tile.
-// - tile: the same warps, each running that kernel's K tile on registers
-//   (no loads): four IMADs of packed nibble products, their four byte
-//   permutes, two m16n8k32; cycles per tile of warp 0.  Variants: that
-//   tile, its integer work alone, its two MMAs alone; and the tile with its
-//   operands loaded from shared memory as the kernel lays them out (a pair
-//   of a nibbles, four packed b words a lane), and those loads alone.
+//   issuing independent m16n8k32 MMAs of int8 by uint8 (the "mxu" verify
+//   kernel's, csrc/ed25519_mxu_tile.cuh's `mma`) on eight accumulators:
+//   cycles per MMA of warp 0.  With one warp on each sub-partition that is
+//   the MMA's cost on a sub-partition's tensor core; with two, whether two
+//   warps share it.
+// - tile: the same warps, each running that kernel's own K tiles
+//   (`tile_block` of csrc/ed25519_mxu_tile.cuh, the 16 tiles of a warp's
+//   second half of an M tile) on staged operands in shared memory, laid out
+//   as the kernel lays them out: cycles per tile of warp 0.
 //
 // - empty: a kernel of one warp that does nothing.  Its time back to back
 //   on a stream is the launch floor, the line against which a launch of
@@ -53,6 +50,7 @@
 #include <type_traits>
 
 #include "ed25519_field.cuh"
+#include "ed25519_mxu_tile.cuh"
 #include "sha256_round.cuh"
 
 namespace {
@@ -285,30 +283,7 @@ extern "C" int mirbft_field_probe(void* out, long long op, long long seed, long 
   return (int)cudaGetLastError();
 }
 
-// D += A B for int8 A and uint8 B fragments (as csrc/ed25519_mxu.cu's):
-// m16n8k32 (kShape 0), m16n8k16 (1), m8n8k16 (2).
-template <int kShape>
-__device__ __forceinline__ void mma_s8u8(int32_t* d, const uint32_t* a, const uint32_t* b) {
-  if (kShape == 0)
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  if (kShape == 1)
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.s32.s8.u8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(b[0]));
-  if (kShape == 2)
-    asm volatile(
-        "mma.sync.aligned.m8n8k16.row.col.s32.s8.u8.s32 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-        : "+r"(d[0]), "+r"(d[1])
-        : "r"(a[0]), "r"(b[0]));
-}
-
-template <int kShape>
+// Independent MMAs of the "mxu" kernel's shape, on kLanes accumulators.
 __global__ void mma_probe_kernel(unsigned long long* out, uint32_t seed, long long trips) {
   int32_t d[kLanes][4] = {};
   const uint32_t a[4] = {seed + threadIdx.x, seed * 3, seed * 5, seed * 7};
@@ -319,7 +294,7 @@ __global__ void mma_probe_kernel(unsigned long long* out, uint32_t seed, long lo
 #pragma unroll
     for (int j = 0; j < kUnroll / kLanes; ++j)
 #pragma unroll
-      for (int i = 0; i < kLanes; ++i) mma_s8u8<kShape>(d[i], a, b);
+      for (int i = 0; i < kLanes; ++i) mxu::mma(d[i], a, b);
   }
   const long long c1 = clock64();
   int32_t v = 0;
@@ -329,66 +304,34 @@ __global__ void mma_probe_kernel(unsigned long long* out, uint32_t seed, long lo
   atomicXor(reinterpret_cast<unsigned int*>(out + 1), (uint32_t)v);
 }
 
-template <int kVariant>
+// K tiles each warp of one tile-probe launch runs per trip: two of
+// `tile_block`'s blocks of 8.
+constexpr int kTilesPerTrip = 16;
+
+// The "mxu" kernel's tiles: warp w runs blocks 2 and 3 (half 1) of M tile
+// w % 4 on one staged multiply, trip after trip, into the same two sets of
+// accumulators.  Operands are nibbles as the kernel stages them (a times
+// 16, b packed two a word).
 __global__ void tile_probe_kernel(unsigned long long* out, uint32_t seed, long long trips) {
-  constexpr uint32_t kBias = (1008u + (1008u << 16)) << 4;  // as csrc/ed25519_mxu.cu's
-  constexpr int kAStride = 68, kWStride = 84;               // and its layout
-  __shared__ uint32_t an[8 * kAStride], wn[8 * kWStride];
-  for (int i = threadIdx.x; i < 8 * kAStride; i += blockDim.x) an[i] = ((seed + i) & 15) * 16;
-  for (int i = threadIdx.x; i < 8 * kWStride; i += blockDim.x) wn[i] = ((seed ^ i) & 15) * 65537u;
-  const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
-  const uint32_t* arow = an + g * kAStride;
-  const uint32_t* wrow = wn + g * kWStride + 40 + tig;
-  int32_t acc[4][4] = {};
-  uint32_t w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) w[i] = ((seed + threadIdx.x + i) & 15) * 65537u;
-  uint32_t a0 = (seed & 15) * 16, a1 = ((seed >> 4) & 15) * 16;
-  const uint32_t frag[4] = {seed * 3, seed * 5, seed * 7, seed * 9};
+  __shared__ mxu::Staged st;
+  for (int i = threadIdx.x; i < mxu::kSigs * mxu::kAStride; i += blockDim.x)
+    (&st.an[0][0])[i] = (int32_t)(((seed + i) & 15) * 16);
+  for (int i = threadIdx.x; i < mxu::kSigs * mxu::kWStride; i += blockDim.x)
+    (&st.w[0][0])[i] = (int32_t)(((seed ^ i) & 15) * 65537u);
+  const mxu::LaneConsts c = mxu::lane_constants();
+  const int q = (threadIdx.x / 32) % mxu::kTiles;
+  int32_t lo[2][4] = {}, hi[2][4] = {};
   __syncthreads();
   const long long c0 = clock64();
   for (long long n = 0; n < trips; ++n) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      uint32_t v[4], a[2] = {a0, a1};
-      if (kVariant >= 3) {  // the kernel's loads: i0 = 2t (+ the trip), j0 = 40 - 2t
-        const int i0 = (2 * t + 16 * (int)(n & 3)) & 63;
-        const uint2 pair = *reinterpret_cast<const uint2*>(arow + i0);
-        a[0] = pair.x, a[1] = pair.y;
-        v[0] = wrow[-2 * t], v[1] = wrow[8 - 2 * t], v[2] = wrow[-1 - 2 * t],
-        v[3] = wrow[7 - 2 * t];
-      } else {
-        v[0] = w[t & 7], v[1] = w[(t + 1) & 7], v[2] = w[(t + 2) & 7], v[3] = w[(t + 3) & 7];
-      }
-      if (kVariant == 4) {
-        acc[t & 3][0] ^= a[0] + v[0] + v[2];
-        acc[t & 3][1] ^= a[1] + v[1] + v[3];
-        continue;
-      }
-      uint32_t b_lo[2], b_hi[2];
-      if (kVariant == 2) {
-        b_lo[0] = v[0], b_lo[1] = v[1], b_hi[0] = v[2], b_hi[1] = v[3];
-      } else {
-        const uint32_t y0 = v[0] * a[0] + kBias, y1 = v[1] * a[0] + kBias;
-        const uint32_t y2 = v[2] * a[1] + kBias, y3 = v[3] * a[1] + kBias;
-        b_lo[0] = __byte_perm(y0, y1, 0x6240), b_lo[1] = __byte_perm(y2, y3, 0x6240);
-        b_hi[0] = __byte_perm(y0, y1, 0x7351), b_hi[1] = __byte_perm(y2, y3, 0x7351);
-      }
-      if (kVariant == 1) {
-        acc[t & 3][0] ^= b_lo[0] + b_hi[1];
-        acc[t & 3][1] ^= b_lo[1] + b_hi[0];
-      } else {
-        mma_s8u8<0>(acc[(t & 1) * 2], frag, b_lo);
-        mma_s8u8<0>(acc[(t & 1) * 2 + 1], frag, b_hi);
-      }
-    }
-    a0 = (a0 + 16) & 0xf0;
-    a1 = (a1 + 48) & 0xf0;
+    asm volatile("" ::: "memory");  // each trip loads its operands, as each multiply does
+    mxu::tile_block(st, q, 2, c.arow, c.wrow, c.wrow1, c.one, c.wide, lo, hi);
+    mxu::tile_block(st, q, 3, c.arow, c.wrow, c.wrow1, c.one, c.wide, lo, hi);
   }
   const long long c1 = clock64();
   int32_t x = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) x ^= acc[i][0] ^ acc[i][1] ^ acc[i][2] ^ acc[i][3];
+  for (int i = 0; i < 4; ++i) x ^= lo[0][i] ^ lo[1][i] ^ hi[0][i] ^ hi[1][i];
   if (threadIdx.x == 0) out[0] = (unsigned long long)(c1 - c0);
   atomicXor(reinterpret_cast<unsigned int*>(out + 1), (uint32_t)x);
 }
@@ -398,38 +341,22 @@ __global__ void empty_kernel() {}
 // MMAs each warp of one mma-probe launch issues per trip.
 extern "C" long long mirbft_mma_per_trip() { return kUnroll; }
 
-extern "C" int mirbft_mma_probe(void* out, long long shape, long long warps, long long seed,
-                                long long trips, void* stream) {
-  auto* o = (unsigned long long*)out;
-  auto s = (cudaStream_t)stream;
-  const unsigned threads = (unsigned)(32 * warps);
+extern "C" int mirbft_mma_probe(void* out, long long warps, long long seed, long long trips,
+                                void* stream) {
   if (warps < 1 || warps > 32) return (int)cudaErrorInvalidValue;
-  switch (shape) {
-    case 0: mma_probe_kernel<0><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    case 1: mma_probe_kernel<1><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    case 2: mma_probe_kernel<2><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  mma_probe_kernel<<<1, (unsigned)(32 * warps), 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)out, (uint32_t)seed, trips);
   return (int)cudaGetLastError();
 }
 
 // K tiles each warp of one tile-probe launch runs per trip.
-extern "C" long long mirbft_tile_per_trip() { return 8; }
+extern "C" long long mirbft_tile_per_trip() { return kTilesPerTrip; }
 
-extern "C" int mirbft_tile_probe(void* out, long long variant, long long warps, long long seed,
-                                 long long trips, void* stream) {
-  auto* o = (unsigned long long*)out;
-  auto s = (cudaStream_t)stream;
-  const unsigned threads = (unsigned)(32 * warps);
+extern "C" int mirbft_tile_probe(void* out, long long warps, long long seed, long long trips,
+                                 void* stream) {
   if (warps < 1 || warps > 32) return (int)cudaErrorInvalidValue;
-  switch (variant) {
-    case 0: tile_probe_kernel<0><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    case 1: tile_probe_kernel<1><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    case 2: tile_probe_kernel<2><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    case 3: tile_probe_kernel<3><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    case 4: tile_probe_kernel<4><<<1, threads, 0, s>>>(o, (uint32_t)seed, trips); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  tile_probe_kernel<<<1, (unsigned)(32 * warps), 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)out, (uint32_t)seed, trips);
   return (int)cudaGetLastError();
 }
 

@@ -91,9 +91,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mirbft_issue_per_trip": ((), _I64),
         "mirbft_rounds_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_field_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
-        "mirbft_mma_probe": ((_P, _I64, _I64, _I64, _I64, _P), ctypes.c_int),
+        "mirbft_mma_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_mma_per_trip": ((), _I64),
-        "mirbft_tile_probe": ((_P, _I64, _I64, _I64, _I64, _P), ctypes.c_int),
+        "mirbft_tile_probe": ((_P, _I64, _I64, _I64, _P), ctypes.c_int),
         "mirbft_tile_per_trip": ((), _I64),
         "mirbft_empty_launch": ((_P,), ctypes.c_int),
         "mirbft_cuda_error_string": ((ctypes.c_int,), ctypes.c_char_p),

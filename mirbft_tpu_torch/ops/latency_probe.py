@@ -108,50 +108,36 @@ def field_cycles(op: str, calls: int = 1 << 12) -> float:
     return int(out[0].item()) / calls
 
 
-# mma.sync shapes (int8 by uint8) of ``mma_cycles``; the "mxu" verify kernel
-# issues m16n8k32.
-MMA_SHAPES = ("m16n8k32", "m16n8k16", "m8n8k16")
-
-
-def mma_cycles(shape: str = "m16n8k32", warps: int = 4, trips: int = 1 << 10) -> float:
-    """Cycles per int8 by uint8 MMA of ``shape`` (one of ``MMA_SHAPES``) of one warp
-    when ``warps`` warps of one block each issue independent MMAs on eight
-    accumulators: with four warps (one a sub-partition), the MMA's cost on
-    a sub-partition's tensor core; with eight, two warps share one."""
+def mma_cycles(warps: int = 4, trips: int = 1 << 10) -> float:
+    """Cycles per int8 by uint8 m16n8k32 MMA (the "mxu" verify kernel's) of
+    one warp when ``warps`` warps of one block each issue independent MMAs
+    on eight accumulators: with four warps (one a sub-partition), the MMA's
+    cost on a sub-partition's tensor core; with eight, two warps share one."""
     import torch
 
     from . import _build
 
     lib = _build.library("latency_probe")
     out = torch.zeros(2, dtype=torch.int64, device="cuda")
-    code = lib.mirbft_mma_probe(
-        out.data_ptr(), MMA_SHAPES.index(shape), warps, 7, trips,
-        torch.cuda.current_stream().cuda_stream,
-    )
+    code = lib.mirbft_mma_probe(out.data_ptr(), warps, 7, trips,
+                                torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "mma_probe")
     return int(out[0].item()) / (trips * lib.mirbft_mma_per_trip())
 
 
-# Variants of ``tile_cycles``: the "mxu" kernel's K tile on registers, its
-# integer work alone, its MMAs alone; the tile with its operands loaded from
-# shared memory, and those loads alone.
-TILE_VARIANTS = ("kernel", "integer", "mma", "loaded", "loads")
-
-
-def tile_cycles(variant: str = "kernel", warps: int = 4, trips: int = 1 << 10) -> float:
-    """Cycles per K tile of the "mxu" verify kernel (csrc/ed25519_mxu.cu) of
-    one warp, on registers, when ``warps`` warps of one block each run
-    independent tiles: ``variant`` one of ``TILE_VARIANTS``."""
+def tile_cycles(warps: int = 4, trips: int = 1 << 10) -> float:
+    """Cycles per K tile of the "mxu" verify kernel's contraction (its own
+    ``tile_block``, csrc/ed25519_mxu_tile.cuh) of one warp, on operands
+    staged in shared memory as the kernel stages them, when ``warps`` warps
+    of one block each run their tiles."""
     import torch
 
     from . import _build
 
     lib = _build.library("latency_probe")
     out = torch.zeros(2, dtype=torch.int64, device="cuda")
-    code = lib.mirbft_tile_probe(
-        out.data_ptr(), TILE_VARIANTS.index(variant), warps, 7, trips,
-        torch.cuda.current_stream().cuda_stream,
-    )
+    code = lib.mirbft_tile_probe(out.data_ptr(), warps, 7, trips,
+                                 torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "tile_probe")
     return int(out[0].item()) / (trips * lib.mirbft_tile_per_trip())
 

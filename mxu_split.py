@@ -4,22 +4,19 @@ phase, on the card.
 
     python3 mxu_split.py SOURCE.cu [ROWS ...]
 
-SOURCE.cu is a revision of ``csrc/ed25519_mxu.cu`` in one of two layouts:
-
-    blocks of 16      the first one (one block of four warps for 16 rows;
-                      ``fe_mul`` stages the nibbles, syncs the block,
-                      contracts, syncs, copies and carries)
-    warp a signature  the redesign's (a block of eight warps for 8 rows,
-                      warp s owning row s; ``fe_mul_n`` stages a batch of
-                      up to four independent multiplies, syncs, contracts,
-                      syncs and carries)
+SOURCE.cu is ``csrc/ed25519_mxu.cu`` as it stands, or a revision of the
+same layout (a block of eight warps for 8 rows, warp s owning row s;
+``fe_mul_n`` stages a batch of up to four independent multiplies, syncs,
+contracts, syncs and carries), with ``csrc/ed25519_mxu_tile.cuh`` beside it.
+``tests/test_torch_ed25519_mxu.py`` checks that every anchor is found in
+the current source.
 
 The script inserts ``clock64`` stamps into a copy of it (it fails if an
-anchor of the layout is missing), builds the copy with the port's nvcc
+anchor is missing), builds the copy with the port's nvcc
 flags, and launches it on random rows (the kernel is branch free, so the
 data changes no time).  Thread 0 of every block adds the cycles since its
-previous stamp to one phase of the multiply or batch (the layout's
-``PHASES``, shown per multiply), to ``other`` (between two tracked
+previous stamp to one phase of a batch of multiplies (``PHASES``,
+shown per multiply), to ``other`` (between two tracked
 operations: selects, set-up, freeze) or to ``addsub`` (an add or sub with
 its carry round, per add or sub), and separately counts the cycles of
 each ladder step and of the whole block.  One ``split`` line a row count
@@ -41,11 +38,8 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# Phases 1-6 of a multiply, by layout.
-PHASES = {
-    "blocks of 16": ("stage", "barrier1", "contract", "barrier2", "copy", "carry"),
-    "warp a signature": ("stage", "barrier1", "contract", "barrier2", "carry"),
-}
+# Phases 1-5 of a batch of multiplies.
+PHASES = ("stage", "barrier1", "contract", "barrier2", "carry")
 
 PROFILE = r"""
 #ifdef __CUDACC__
@@ -101,31 +95,10 @@ extern "C" int mirbft_mxu_profile(void* out, int reset) {
 }
 """
 
-# (anchor, replacement) by layout: each anchor must occur exactly once.
-COMMON = [
-    ("#include <stdint.h>\n", "#include <stdint.h>\n" + PROFILE),
+# (anchor, replacement): each anchor must occur exactly once.
+EDITS = [
+    ('#include "ed25519_mxu_tile.cuh"\n', '#include "ed25519_mxu_tile.cuh"\n' + PROFILE),
     ("#endif  // __CUDACC__\n", READ + "#endif  // __CUDACC__\n"),
-]
-EDITS = {"blocks of 16": COMMON + [
-    ("MXU_CALL void fe_mul(C& ctx, int dst, int a, int b) {\n",
-     "MXU_CALL void fe_mul(C& ctx, int dst, int a, int b) {\n  MXU_T(0);\n"),
-    ("  ctx.sync();\n  ctx.contract();\n  ctx.sync();\n",
-     "  MXU_T(1);\n  ctx.sync();\n  MXU_T(2);\n  ctx.contract();\n  MXU_T(3);\n"
-     "  ctx.sync();\n  MXU_T(4);\n"),
-    ("  fe_carry(ctx, dst, 4);\n}\n",
-     "  MXU_T(5);\n  fe_carry(ctx, dst, 4);\n  MXU_T(6);\n  MXU_COUNT(0, 1);\n"
-     "  MXU_COUNT(3, 1);\n}\n"),
-    ("MXU_CALL void fe_addsub(C& ctx, int dst, int a, int b, int sign) {\n",
-     "MXU_CALL void fe_addsub(C& ctx, int dst, int a, int b, int sign) {\n  MXU_T(0);\n"),
-    ("  fe_carry(ctx, dst, 1);\n}\n",
-     "  fe_carry(ctx, dst, 1);\n  MXU_T(7);\n  MXU_COUNT(1, 1);\n}\n"),
-    ("    pt_double(ctx, q, q);\n", "    MXU_STEP_BEGIN();\n    pt_double(ctx, q, q);\n"),
-    ("    pt_add(ctx, q, addend, q);\n  }\n",
-     "    pt_add(ctx, q, addend, q);\n    MXU_STEP_END();\n  }\n"),
-    ("  DevCtx ctx;\n", "  DevCtx ctx;\n" + INIT),
-    ("    if (row < rows) out[row] = ok[ctx.lane];\n  }\n",
-     "    if (row < rows) out[row] = ok[ctx.lane];\n  }\n" + FLUSH),
-], "warp a signature": COMMON + [
     ("MXU_CALL void fe_mul_n(C& ctx, int op0, int op1, int op2, int op3) {\n",
      "MXU_CALL void fe_mul_n(C& ctx, int op0, int op1, int op2, int op3) {\n  MXU_T(0);\n"),
     ("  ctx.sync();\n  contract_batch(ctx, N);\n  ctx.sync();\n",
@@ -148,20 +121,19 @@ EDITS = {"blocks of 16": COMMON + [
     ("    if (threadIdx.x % 32 == 0 && first + s < rows) out[first + s] = (uint8_t)ok;\n  });\n",
      "    if (threadIdx.x % 32 == 0 && first + s < rows) out[first + s] = (uint8_t)ok;\n  });\n"
      + FLUSH),
-]}
-
-
-def layout(text: str) -> str:
-    return "warp a signature" if "fe_mul_n" in text else "blocks of 16"
+]
 
 
 def instrument(text: str) -> str:
-    for anchor, replacement in EDITS[layout(text)]:
-        pattern = anchor if isinstance(anchor, re.Pattern) else re.compile(re.escape(anchor))
-        text, count = pattern.subn(replacement.replace("\\", "\\\\")
-                                   if not isinstance(anchor, re.Pattern) else replacement, text)
+    """``text`` with the stamps in; raises if an anchor is not found once."""
+    for anchor, replacement in EDITS:
+        if isinstance(anchor, re.Pattern):
+            text, count = anchor.subn(replacement, text)
+        else:
+            count = text.count(anchor)
+            text = text.replace(anchor, replacement)
         if count != 1:
-            raise SystemExit(f"mxu_split: anchor found {count} times, not once: {anchor!r}")
+            raise ValueError(f"mxu_split: anchor found {count} times, not once: {anchor!r}")
     return text
 
 
@@ -183,7 +155,7 @@ def main(argv) -> int:
     rows_list = [int(r) for r in argv[2:]] or [16, 1024]
     with open(argv[1]) as fh:
         text = fh.read()
-    phases = PHASES[layout(text)]
+    phases = PHASES
     folder = os.path.join(HERE, "chiprun_out", "mxu_split")
     os.makedirs(folder, exist_ok=True)
     stem = os.path.splitext(os.path.basename(argv[1]))[0]
@@ -191,7 +163,9 @@ def main(argv) -> int:
     with open(source, "w") as fh:
         fh.write(instrument(text))
     library = os.path.join(folder, f"lib{stem}_stamped.so")
-    built = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", library, source],
+    headers = os.path.dirname(os.path.abspath(argv[1]))  # ed25519_mxu_tile.cuh
+    built = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", headers, "-o", library,
+                            source],
                            capture_output=True, text=True)
     print(built.stdout + built.stderr, flush=True)
     if built.returncode:
@@ -212,7 +186,7 @@ def main(argv) -> int:
     stamped.mirbft_mxu_profile.restype = ctypes.c_int
     smi = chip_smoke.nvidia_smi_line()
     hz = chip_smoke.sm_clock_hz()
-    print(f"mxu_split: {argv[1]} ({layout(text)}) sm_clock_mhz={hz / 1e6:.0f} | {smi}",
+    print(f"mxu_split: {argv[1]} sm_clock_mhz={hz / 1e6:.0f} | {smi}",
           flush=True)
 
     rng = np.random.default_rng(chip_smoke.SEED)
@@ -270,7 +244,7 @@ def main(argv) -> int:
               f"plain_ms={[round(t, 6) for t in times['plain']]} "
               f"stamped_ms={[round(t, 6) for t in times['stamped']]} | {smi}", flush=True)
     with open(os.path.join(HERE, "chiprun_out", f"mxu_split_{stem}.json"), "w") as fh:
-        json.dump({"device": smi, "source": argv[1], "layout": layout(text), "rows": results},
+        json.dump({"device": smi, "source": argv[1], "rows": results},
                   fh, indent=1)
     print(smi)
     return 0

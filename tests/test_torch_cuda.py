@@ -149,12 +149,10 @@ def test_pipe_probes():
     one = latency_probe.round_cycles(1, blocks=16)
     assert 8.0 <= one <= 200.0
     assert latency_probe.round_cycles(2, blocks=16) > one
-    for shape in latency_probe.MMA_SHAPES:
-        alone = latency_probe.mma_cycles(shape, 4, trips=1 << 6)
-        assert 1.0 <= alone <= 200.0
-        assert latency_probe.mma_cycles(shape, 8, trips=1 << 6) >= alone  # two share one
-    for variant in latency_probe.TILE_VARIANTS:
-        assert 1.0 <= latency_probe.tile_cycles(variant, 4, trips=1 << 6) <= 2_000.0
+    alone = latency_probe.mma_cycles(4, trips=1 << 6)
+    assert 1.0 <= alone <= 200.0
+    assert latency_probe.mma_cycles(8, trips=1 << 6) >= alone  # two share one
+    assert alone <= latency_probe.tile_cycles(4, trips=1 << 6) <= 2_000.0  # two MMAs a tile
 
 
 def test_crossover_probe_on_the_card():

@@ -191,6 +191,26 @@ def test_host_ladder_step_equals_the_twin(host_build):
         assert (got == expected.numpy()).all()
 
 
+def test_split_tool_finds_its_anchors():
+    """``mxu_split.py`` stamps a copy of the kernel at exact lines of its
+    source: every anchor is found once in the current source, and the
+    stamps land in the batched multiply, the adds and subs and the ladder."""
+    import sys
+
+    sys.path.insert(0, ROOT)
+    try:
+        import mxu_split
+    finally:
+        sys.path.remove(ROOT)
+    with open(SOURCE) as fh:
+        stamped = mxu_split.instrument(fh.read())
+    for stamp in ("MXU_T(0);", "MXU_T(3);", "MXU_T(5);", "MXU_T(7);", "MXU_STEP_END();",
+                  "mirbft_mxu_profile"):
+        assert stamp in stamped, stamp
+    with pytest.raises(ValueError):
+        mxu_split.instrument(stamped.replace("  DevCtx ctx;\n", ""))
+
+
 @pytest.mark.parametrize(
     "change,error",
     [

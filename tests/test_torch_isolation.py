@@ -215,6 +215,7 @@ def _port_sources():
     yield os.path.join(ROOT, "ab_sha256.py")
     yield os.path.join(ROOT, "ab_ed25519.py")
     yield os.path.join(ROOT, "ab_mesh_count.py")
+    yield os.path.join(ROOT, "mxu_split.py")
 
 
 def test_sources_never_name_jax_or_the_reference_package():
